@@ -78,7 +78,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--max-dim", type=int, default=64)
     ap.add_argument("--dims", type=int, nargs="+", default=[1, 2, 3])
-    ap.add_argument("--backend", choices=["cpu", "tpu"],
+    ap.add_argument("--backend", choices=["cpu", "gpu"],
                     help="force backend (must be set before first device use)")
     args = ap.parse_args()
 

@@ -7,9 +7,8 @@ stencil-representable matrices to the gather-free stencil engine and
 everything else to the padded-static-nnz sparse engine
 (``core/algebraic.py``).  Matrices whose ELL slots are offset-regular
 (``col == row + d_j`` per slot — the Poisson/banded family) additionally
-take the slot-offset Pallas DIA kernel (``ops/ell.py``): measured
-8.6e10 nnz/s at the 256³ Poisson ELL on a v5e, ~750× XLA's native
-gather.
+take the gather-free banded SpMV (``ops/ell.py``): static shifted slices
+of ``x`` instead of a gather.
 
     python examples/general_sparse.py [--shape 32 32 32]
 """
@@ -31,7 +30,6 @@ def main():
 
     from openmg_tpu import mg_solve
     from openmg_tpu.models.poisson import poisson, rhs_random
-    from openmg_tpu.ops import ell as ell_mod
     from openmg_tpu.ops.sparse import ell_from_scipy
 
     A = poisson(shape)
@@ -41,7 +39,7 @@ def main():
     M = ell_from_scipy(A)
     print(
         f"ELL: n={M.shape[0]} k={M.k} slot_offsets={M.slot_offsets} "
-        f"pallas_dia={ell_mod.supports(M)}"
+        f"banded={M.slot_offsets is not None}"
     )
 
     x_direct = spla.spsolve(A.tocsc(), b)

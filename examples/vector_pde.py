@@ -2,9 +2,9 @@
 """Vector-PDE solves through BSR hierarchies (models/elasticity.py).
 
 The reference is a scalar-Poisson testbed; this framework adds
-dense-block vector operators — the blocked-band Pallas BSR kernel's win
-case (``ops/bsr.py``: a scalar layout pads the block structure ~B×; BSR
-streams 4 B per padded nnz with zero index traffic):
+dense-block vector operators — the case BSR exists for (``ops/bsr.py``:
+a scalar layout pads the block structure ~B×; the blocked-band BSR SpMV
+reads no indices):
 
 * 2D plane-strain linear elasticity (2 dofs/node, the ∂xy cross term
   couples components through purely off-diagonal 2×2 corner blocks);

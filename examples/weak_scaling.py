@@ -7,11 +7,11 @@ per-device smoother throughput and cycle time vs the 1-device run::
 
     python examples/weak_scaling.py [--base 32] [--max-devices 8]
 
-In this build environment there is ONE real TPU chip, so the harness runs
-on fake CPU devices by default — it validates the *harness* and the
-distributed code path; absolute numbers are CPU numbers.  On a real pod
-slice, run it unchanged with ``--backend tpu`` (one process per host,
-``jax.distributed.initialize`` via ``initialize_distributed()``).
+By default the harness runs on virtual CPU devices — it validates the
+*harness* and the distributed code path; absolute numbers are CPU
+numbers.  On GPUs run it with ``--backend gpu`` (one process per host;
+``initialize_distributed()`` takes the coordinator address, process count
+and process id where no cluster environment provides them).
 
 Output: one JSON line per device count with nnz/s/device and efficiency.
 """
@@ -96,14 +96,6 @@ def run_weak_scaling(
             "smoother_nnz_per_s_per_device": nnz_per_s_dev,
             "weak_scaling_efficiency": nnz_per_s_dev / base_nnz_per_s,
         }
-        if n > 1:
-            # static halo-bytes/HBM-bytes accounting + modeled efficiency
-            # bounds for a real pod (the measured fake-CPU efficiency
-            # above is contention noise, not scaling signal —
-            # parallel/model.py)
-            from openmg_tpu.parallel.model import comm_model
-
-            rec["comm_model"] = comm_model(solver)
         records.append(rec)
         if on_record is not None:
             on_record(rec)
@@ -118,7 +110,7 @@ def main():
     ap.add_argument("--ny", type=int, default=32)
     ap.add_argument("--nz", type=int, default=32)
     ap.add_argument("--max-devices", type=int, default=8)
-    ap.add_argument("--backend", choices=["cpu", "tpu"], default="cpu")
+    ap.add_argument("--backend", choices=["cpu", "gpu"], default="cpu")
     args = ap.parse_args()
 
     import jax

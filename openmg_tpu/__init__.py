@@ -1,20 +1,20 @@
-"""openmg_tpu — a TPU-native geometric multigrid framework.
+"""openmg_tpu — a geometric multigrid framework in JAX.
 
-A brand-new JAX/XLA/Pallas implementation of the capability surface of the
-pure-Python reference ``tsbertalan/openmg`` (geometric multigrid for sparse
-SPD systems — canonically 1D/2D/3D Poisson on regular grids), redesigned
-TPU-first rather than ported:
+A JAX/XLA implementation of the capability surface of the pure-Python
+reference ``tsbertalan/openmg`` (geometric multigrid for sparse SPD
+systems — canonically 1D/2D/3D Poisson on regular grids), redesigned for
+accelerators rather than ported:
 
 * operators live in a DIA-on-grid "stencil" form (dense per-offset
-  coefficient grids) — shift-multiply-add over dense arrays is the idiomatic
-  TPU execution model (VPU-vectorized, HBM-streaming, gather-free);
+  coefficient grids) — shift-multiply-add over dense arrays, which XLA
+  fuses into memory-streaming, gather-free loops;
 * CSR / ELL / BSR containers with padded static nnz cover the general
   sparse-interchange surface (BASELINE component T1);
-* smoothers (weighted Jacobi, red–black Gauss–Seidel) run as fused Pallas
-  kernels on the stencil fast path (T3/T4);
+* smoothers (weighted Jacobi, red–black Gauss–Seidel, Chebyshev) are
+  plain ``jax.numpy`` sweeps that XLA fuses (T3/T4);
 * the V-cycle is unrolled over the static level list into one jitted XLA
   program (T7); the coarsest level is direct-solved (T8);
-* multi-chip/multi-host scaling uses ``jax.sharding.Mesh`` + ``shard_map``
+* multi-device/multi-host scaling uses ``jax.sharding.Mesh`` + ``shard_map``
   with ``ppermute`` halo exchange and all-gather coarse redistribution
   (T9–T11, T16).
 

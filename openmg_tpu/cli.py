@@ -6,6 +6,9 @@ Usage::
     python -m openmg_tpu --shape 256 256 256 --smoother rbgs --transfer linear
     python -m openmg_tpu --shape 64 64 --devices 8 --backend cpu   # distributed
 
+Compiled programs are kept in JAX's persistent cache
+(:mod:`openmg_tpu.utils.cache`).
+
 ``--config`` loads a :class:`SolverConfig` from JSON (the same
 serialization ``SolverConfig.to_json`` writes); explicit flags override
 it.  The structured report (config, level stats, residual history,
@@ -22,7 +25,7 @@ import time
 
 def build_parser():
     ap = argparse.ArgumentParser(
-        prog="openmg_tpu", description="TPU-native geometric multigrid solver"
+        prog="openmg_tpu", description="geometric multigrid solver"
     )
     ap.add_argument("--shape", type=int, nargs="+", required=True,
                     help="grid shape, e.g. --shape 256 256 256")
@@ -41,8 +44,8 @@ def build_parser():
                     help=">1: distributed solve over an n-device mesh")
     ap.add_argument("--mesh-shape", type=int, nargs=2, metavar=("HOSTS", "CHIPS"),
                     help="2-axis (host, chip) mesh for the distributed solve")
-    ap.add_argument("--backend", choices=["cpu", "tpu"],
-                    help="force backend (cpu enables fake multi-device)")
+    ap.add_argument("--backend", choices=["cpu", "gpu"],
+                    help="force backend (cpu enables virtual multi-device)")
     ap.add_argument("--levels", action="store_true",
                     help="include measured per-level smoother breakdown")
     ap.add_argument("--report", help="write the JSON report here")
@@ -66,6 +69,10 @@ def main(argv=None):
             )
 
     import numpy as np
+
+    from openmg_tpu.utils.cache import use_compile_cache
+
+    use_compile_cache()
 
     from openmg_tpu import MeshConfig, SolverConfig, distributed_setup, setup
     from openmg_tpu.models.poisson import rhs_random

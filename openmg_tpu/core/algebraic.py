@@ -40,6 +40,7 @@ from openmg_tpu.core.config import SolverConfig
 from openmg_tpu.ops.doublefloat import df_add_f32, df_merge, df_split, df_sub
 from openmg_tpu.ops.sparse import (
     ELLMatrix,
+    dense_matvec,
     ell_from_scipy,
     from_scipy,
     spmv,
@@ -163,9 +164,9 @@ class SparseHierarchy:
     fmt: str
     # per-level grid shapes + the transfer spec the explicit R/P were
     # built from: factor-2 level pairs apply transfers as the separable
-    # strided grid ops (ops/transfer.py — gather-free; XLA's gather is
-    # ~750× off roofline on TPU) instead of SpMV with the explicit ELL
-    # matrix.  None (legacy/hand-built hierarchies) keeps the SpMV path.
+    # strided grid ops (ops/transfer.py — gather-free) instead of SpMV
+    # with the explicit ELL matrix.  None (legacy/hand-built
+    # hierarchies) keeps the SpMV path.
     shapes: tuple | None = None
     transfer_name: str | None = None
     # dofs per node (vector PDEs — models/elasticity.py): transfers are
@@ -405,7 +406,7 @@ def _smooth_sparse(level: SparseLevel, b, x, iterations: int, smoother, omega):
 
 def _restrict_level(hierarchy: SparseHierarchy, level: int, r):
     """``R r`` at ``level``: separable strided grid ops on factor-2 level
-    pairs (gather-free — the TPU path), explicit-ELL SpMV otherwise.
+    pairs (gather-free), explicit-ELL SpMV otherwise.
     Identical values either way (the explicit matrices are built FROM the
     tap tensor product — utils/oracle.py; agreement pinned in
     tests/test_transfer.py)."""
@@ -445,7 +446,7 @@ def sparse_v_cycle(
     trace time (T7)."""
     L = hierarchy.levels[level]
     if level == hierarchy.num_levels - 1:
-        return hierarchy.coarse_inv @ b
+        return dense_matvec(hierarchy.coarse_inv, b)
     x = _smooth_sparse(L, b, x, pre, smoother, omega)
     r = b - spmv(L.A, x)
     bc = _restrict_level(hierarchy, level, r)
@@ -472,7 +473,7 @@ def sparse_fmg_cycle(
     bs = [b]
     for lvl in range(hierarchy.num_levels - 1):
         bs.append(_restrict_level(hierarchy, lvl, bs[-1]))
-    x = hierarchy.coarse_inv @ bs[-1]
+    x = dense_matvec(hierarchy.coarse_inv, bs[-1])
     for lvl in range(hierarchy.num_levels - 2, -1, -1):
         x = _prolong_level(hierarchy, lvl, x)
         x = sparse_v_cycle(
@@ -882,11 +883,10 @@ class AlgebraicSolver:
 
         t_start = time.perf_counter()
         # Cached jit(vmap(...)): re-running the batching transform per
-        # call costs ~0.4 s of host tracing (measured r4 — see
-        # core.solver.Solver.solve_many).  The hierarchy is a runtime
-        # ARGUMENT (in_axes=None), never a closure — closures bake the
-        # level arrays into the lowered module as HLO constants (relay
-        # HTTP 413 on large hierarchies).
+        # call re-traces the whole solve (see core.solver.Solver.solve_many).
+        # The hierarchy is a runtime ARGUMENT (in_axes=None), never a
+        # closure — closures bake the level arrays into the lowered module
+        # as HLO constants.
         if not hasattr(self, "_solve_many_prog"):
             _kw = dict(
                 limit=limit,

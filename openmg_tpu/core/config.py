@@ -43,7 +43,7 @@ class SolverConfig:
     krylov_iters: CG iterations (= cycles) per outer step with krylov="pcg".
     omega: weighted-Jacobi damping (2/3 is optimal for 1D Poisson; a robust
         all-round default).
-    dtype: cycle computation dtype (f32 on TPU).
+    dtype: cycle computation dtype (f32 by default).
     transfer: intergrid transfer spec — "aggregate" is the reference's
         piecewise-constant scheme (parity default); "linear" is
         vertex-centered full-weighting/linear interpolation (much better
@@ -52,12 +52,10 @@ class SolverConfig:
         f32 V-cycle acts as the preconditioner of a defect-correction loop
         evaluated at this precision, which is how 1e-10 absolute residuals
         are reached (SURVEY.md §7 "Hard parts", Plan A).  Choices:
-        "doublefloat" (two-f32 compensated arithmetic — the TPU-native
-        path, no f64 on device), "float64" (requires jax_enable_x64; fast
-        on CPU, pathologically slow to backend-compile on this TPU),
-        "float32", None (same as dtype), or "auto" (default:
-        doublefloat on TPU, float64 on CPU when x64 is enabled, else
-        doublefloat).
+        "doublefloat" (two-f32 compensated arithmetic, no f64 on
+        device), "float64" (requires jax_enable_x64), "float32", None
+        (same as dtype), or "auto" (default: float64 on CPU when x64 is
+        enabled, else doublefloat).
     max_dense_coarse: largest coarsest-level size solved by the
         precomputed dense solve (T8).
     outer_loop: where the outer defect-correction loop runs — "device"
@@ -70,7 +68,7 @@ class SolverConfig:
         when the matrix is grid-structured, else ELL), or force one of
         "stencil" | "ell" | "csr" | "bsr" (the padded-static-nnz general
         containers, SURVEY.md T1) | "dense" (the reference's
-        ``dense=True`` debug mode — densified operators, SpMV as one MXU
+        ``dense=True`` debug mode — densified operators, SpMV as one
         matmul; small problems only).
     blocksize: BSR block edge (square blocks) when format="bsr".
     """
@@ -184,20 +182,18 @@ class MeshConfig:
         exchange carries no dependency from the interior compute (the
         BASELINE T10 overlap); False selects the plain
         exchange-then-compute reference path.
-    mesh_shape: optional (n_hosts, chips_per_host) for a 2-level
-        (DCN, ICI) mesh (SURVEY.md §4.2-3/§5.8): the solver's partition
-        axis spans BOTH mesh axes — collectives take the axis-name tuple
-        and XLA routes neighbor ppermute traffic over ICI within a host
-        and across DCN only at host boundaries.  None → 1D mesh of
-        ``n_devices``.
+    mesh_shape: optional (n_hosts, devices_per_host) for a 2-level mesh
+        (SURVEY.md §4.2-3/§5.8): the solver's partition axis spans BOTH
+        mesh axes — collectives take the axis-name tuple, and neighbor
+        ppermute traffic crosses hosts only at host boundaries.  None → 1D
+        mesh of ``n_devices``.
     axis_names: mesh axis names used with ``mesh_shape``.
     force_partition: debug/validation mode — mark levels *partitioned*
         even on a 1-device mesh.  ``halo_planes`` degenerates to zero
         planes with no collective there, so the compiled program is
-        exactly the per-device pod program (zero-halo Pallas bulk +
-        boundary-plane epilogues + cornered fix-ups + fused df edge
-        repair), which lets a single chip compile-check and benchmark the
-        distributed fast tier without a pod (scripts/bench_dist_chip.py).
+        exactly the per-device multi-device program (halo-aware sweeps +
+        cornered fix-ups), which lets one device compile-check the
+        partitioned path.
     """
 
     n_devices: Optional[int] = None

@@ -21,10 +21,12 @@ Beyond the reference's V-cycle, two standard stronger cycles ship
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from openmg_tpu.core.hierarchy import Hierarchy
 from openmg_tpu.ops.smoothers import smooth
+from openmg_tpu.ops.sparse import dense_matvec
 from openmg_tpu.ops.stencil import apply, residual
 from openmg_tpu.ops.transfer import prolong, restrict
 
@@ -33,10 +35,8 @@ __all__ = ["v_cycle", "fmg_cycle", "coarse_solve", "run_cycle", "pcg_solve"]
 
 def coarse_solve(hierarchy: Hierarchy, b):
     """Direct solve at the coarsest level via the precomputed dense inverse
-    (R8): one small matmul, MXU-friendly."""
-    shape = b.shape
-    x = hierarchy.coarse_inv @ b.reshape(-1)
-    return x.reshape(shape)
+    (R8): one small matrix-vector product at full precision."""
+    return dense_matvec(hierarchy.coarse_inv, b.reshape(-1)).reshape(b.shape)
 
 
 def v_cycle(
@@ -59,50 +59,15 @@ def v_cycle(
 
     ``x_zero`` declares (statically) that ``x`` is all-zero — true at every
     level of the defect-correction cycle (fine level solves ``A e = r``
-    from zero; each coarse visit starts from a zero correction).  The
-    pre-smooth + residual then take the fused zero-start Pallas kernel
-    (ops/fused.py), which reads only ``b``.
+    from zero; each coarse visit starts from a zero correction).  With no
+    pre-smoothing the residual is then ``b`` itself.
     """
-    from openmg_tpu.ops import fused
-
     L = hierarchy.levels[level]
     if level == hierarchy.num_levels - 1:
-        return coarse_solve(hierarchy, b)
-    # deepest fusion first: pre-smooth + residual + restriction in ONE
-    # Pallas pass (never materializes the fine residual); then the
-    # pre-smooth + residual pair; then the separate jnp/Pallas pieces
-    bc = None
-    if pre > 0:
-        out = fused.presmooth_restrict_fused(
-            smoother, L.A, b, None if x_zero else x, pre, omega,
-            hierarchy.transfer,
-        )
-        if out is not None:
-            x, bc = out
-    if bc is None:
-        fused_pre = None
-        if x_zero:
-            if pre == 0:
-                x, r = x, b  # r = b − A·0
-                fused_pre = (x, r)
-            else:
-                fused_pre = fused.presmooth_residual_fused(
-                    smoother, L.A, b, pre, omega
-                )
-        if fused_pre is not None:
-            x, r = fused_pre
-            bc = restrict(r, hierarchy.transfer)
-        else:
-            x = smooth(smoother, L.A, L.inv_diag, b, x, pre, omega)
-            # partial fusion for levels whose planes are too large for
-            # the staged fusions (512²-class): residual + restriction in
-            # one stage-free kernel, never materializing r
-            bc = fused.residual_restrict_fused(
-                L.A, b, x, hierarchy.transfer
-            )
-            if bc is None:
-                r = residual(L.A, b, x)
-                bc = restrict(r, hierarchy.transfer)
+        with jax.named_scope(f"level{level}"):
+            return coarse_solve(hierarchy, b)
+    with jax.named_scope(f"level{level}"):
+        x, bc = _pre_side(hierarchy, L, b, x, pre, smoother, omega, x_zero)
     ec = jnp.zeros_like(bc)
     # µ recursive visits; at the level just above the coarsest a second
     # visit would re-run the exact solve on an (near-)unchanged residual,
@@ -121,26 +86,19 @@ def v_cycle(
             gamma,
             x_zero=(v == 0),
         )
-    if post > 0:
-        y = fused.prolong_smooth_fused(
-            smoother, L.A, b, x, ec, post, omega, hierarchy.transfer
-        )
-        if y is not None:
-            return y
-        if post > 1:
-            # partial fusion (512²-class planes): prolong + the FIRST
-            # post-sweep in one kernel, remaining sweeps on the chunked
-            # tier — exact composition of the same stages
-            y = fused.prolong_smooth_fused(
-                smoother, L.A, b, x, ec, 1, omega, hierarchy.transfer
-            )
-            if y is not None:
-                return smooth(
-                    smoother, L.A, L.inv_diag, b, y, post - 1, omega
-                )
-    x = x + prolong(ec, L.grid_shape, hierarchy.transfer)
-    x = smooth(smoother, L.A, L.inv_diag, b, x, post, omega)
-    return x
+    with jax.named_scope(f"level{level}"):
+        x = x + prolong(ec, L.grid_shape, hierarchy.transfer)
+        return smooth(smoother, L.A, L.inv_diag, b, x, post, omega)
+
+
+def _pre_side(hierarchy, L, b, x, pre, smoother, omega, x_zero):
+    """Pre-smoothing, residual and restriction of one level visit."""
+    if x_zero and pre == 0:
+        r = b
+    else:
+        x = smooth(smoother, L.A, L.inv_diag, b, x, pre, omega)
+        r = residual(L.A, b, x)
+    return x, restrict(r, hierarchy.transfer)
 
 
 def fmg_cycle(
@@ -213,33 +171,27 @@ def pcg_solve(
 
     Used as the inner error solver of the defect-correction loop
     (``SolverConfig(krylov="pcg")``): the outer loop tolerates a
-    nonlinear inner map, so no flexible-CG machinery is needed.  All
-    static trip counts — trace-unrolls into the single solve program.
+    nonlinear inner map, so no flexible-CG machinery is needed.  The
+    steps run as one ``fori_loop``, so the preconditioning cycle is traced
+    and compiled once, whatever ``iters`` is (step 0 takes ``β = 0``).
     """
+    from jax import lax
+
     from openmg_tpu.ops.stencil import apply as stencil_apply
 
     A = hierarchy.levels[0].A
 
-    def precond(rr):
-        return run_cycle(
-            hierarchy, rr, cycle_type, pre, post, smoother, omega
-        )
-
-    e = jnp.zeros_like(r0)
-    r = r0
-    z = precond(r)
-    p = z
-    rz = jnp.sum(r * z)
-    for it in range(iters):
+    def step(it, st):
+        e, r, p, rz_old = st
+        z = run_cycle(hierarchy, r, cycle_type, pre, post, smoother, omega)
+        rz = jnp.sum(r * z)
+        beta = jnp.where(it == 0, jnp.zeros_like(rz), rz / rz_old)
+        p = z + beta * p
         Ap = stencil_apply(A, p)
         alpha = rz / jnp.sum(p * Ap)
-        e = e + alpha * p
-        if it == iters - 1:
-            break
-        r = r - alpha * Ap
-        z = precond(r)
-        rz_new = jnp.sum(r * z)
-        beta = rz_new / rz
-        rz = rz_new
-        p = z + beta * p
+        return e + alpha * p, r - alpha * Ap, p, rz
+
+    zero = jnp.zeros_like(r0)
+    one = jnp.ones((), r0.dtype)
+    e, _, _, _ = lax.fori_loop(0, iters, step, (zero, r0, zero, one))
     return e

@@ -3,10 +3,9 @@ engine (SURVEY.md §2B T1/T3 BSR clause; VERDICT r4 task 4).
 
 The scalar Poisson/diffusion families exercise the stencil and ELL
 engines; these generators produce matrices whose natural unit is a dense
-``B×B`` block per node pair — the case where the blocked-band Pallas BSR
-kernel (:mod:`openmg_tpu.ops.bsr`) beats scalar formats (a scalar ELL
-layout pads the block structure ~B×; BSR streams 4 B/nnz with zero index
-traffic).
+``B×B`` block per node pair — the case the blocked-band BSR SpMV
+(:mod:`openmg_tpu.ops.bsr`) is for (a scalar ELL layout pads the block
+structure ~B×; banded BSR needs no index traffic).
 
 Two families:
 
@@ -19,8 +18,7 @@ Two families:
   system ``(L ⊗ M) + (I ⊗ C)`` with SPD diffusion-coupling ``M`` and
   reaction ``C`` matrices: every block of the operator is dense B×B, and
   the whole matrix is SPD by construction (Kronecker products of SPD
-  factors).  ``B=4`` divides the 128-lane TPU register row, so these
-  hierarchies run the Pallas BSR kernel end to end.
+  factors).
 
 Both return scipy CSR on the flat dof vector (node-major, dof-minor
 ordering — dof index = node·B + c), matching the reference convention of

@@ -1,172 +1,24 @@
-"""Pallas blocked-band BSR SpMV — closing T3's "Pallas CSR/BSR SpMV"
-clause (SURVEY.md §2B; VERDICT r3 task 3).
+"""Gather-free SpMV for blocked-band BSR.
 
-Mosaic cannot gather arbitrary VMEM columns on this TPU generation (the
-on-chip probes in :mod:`openmg_tpu.ops.ell`), so a general BSR gather
-kernel is not TPU-native — but a **blocked-band** BSR (constant per-slot
-block-column delta ``bcols[I, s] == I + d_s``, detected at container
-build: vector-PDE stencils, any block-banded matrix) needs no gather at
-all.  The algebra::
+A **blocked-band** BSR has a constant per-slot block-column delta
+(``bcols[I, s] == I + d_s``, detected at container build: vector-PDE
+stencils, any block-banded matrix).  The algebra::
 
     y[I·B + i] = Σ_s Σ_j data[I, s, i, j] · x[(I + d_s)·B + j]
 
 regroups per (slot s, block column j) into a flat elementwise product:
 let ``z_j[r] = x[(r − r%B) + j]`` (each block's j-th element replicated
 across the block).  Then the (s, j) contribution to ``y`` is
-``data_sm[s, j, :] · shift(z_j, d_s·B)`` — a **static flat shift** (the
-replica is block-aligned, so shifting by whole blocks is a flat shift),
-implemented with the same two-sublane-slices + lane-roll + select trick
-as the ELL DIA kernel.  The ``z_j`` replicas are built *in-kernel* from
-the 3-tile ``x`` window with B static lane rolls + an iota select
-(``B | 128`` keeps blocks inside a 128-lane row), so the kernel streams
-only ``data_sm`` (4 B per padded nnz — no index traffic, no gather) plus
-the small ``x`` window.
-
-``data_sm`` is the slot-major ``(kb, bc, n)`` layout
-(:class:`openmg_tpu.ops.sparse.BSRMatrix`), reshaped for tiling to
-``(kb·bc, n/128, 128)`` — a free leading-dims merge that puts rows in
-lanes exactly like the ELL kernel wants.
-
-Correctness is pinned against the einsum/gather path in interpreter mode
-(tests/test_sparse.py); the compiled path and its throughput vs the
-einsum path are exercised on-chip by scripts/tpu_smoke.py and bench.py.
+``data_sm[s, j, :] · shift(z_j, d_s·B)`` — a static flat shift, since the
+replica is block-aligned.  ``data_sm`` is the slot-major ``(kb, bc, n)``
+layout of :class:`openmg_tpu.ops.sparse.BSRMatrix`.
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from openmg_tpu.ops.ell import _LANE, _shift_rows
-
-__all__ = ["supports", "pick_tile_rows", "spmv_bsr", "spmv_banded_jnp"]
-
-_VMEM_BUDGET = 24 * 1024 * 1024
-
-
-def pick_tile_rows(n: int, kb: int, B: int, slot_offsets):
-    """Tile height TR = TS·128 dividing ``n`` with the 3-tile window
-    covering ``max|d_s·B|`` and a VMEM fit for the kb·B data planes."""
-    if slot_offsets is None or n % _LANE:
-        return None
-    if B < 1 or _LANE % B:
-        return None  # blocks must not straddle 128-lane rows
-    max_d = max((abs(int(d)) * B for d in slot_offsets), default=0)
-    tr = 8 * _LANE
-    while tr < max_d + _LANE or n % tr:
-        tr += 8 * _LANE
-        if tr > n:
-            return None
-    # data blocks (kb·B, TS, 128)·4 B + 3 x windows + out, double-buffered
-    if 2 * (tr * kb * B * 4 + 4 * tr * 4) > _VMEM_BUDGET:
-        return None
-    return tr
-
-
-def supports(M) -> bool:
-    n, m = M.shape
-    br, bc = M.blocksize
-    if n != m or br != bc or M.data.dtype != jnp.float32:
-        return False
-    if M.slot_offsets is None:
-        return False
-    return pick_tile_rows(n, M.kb, br, M.slot_offsets) is not None
-
-
-def _block_replica(W, j, B):
-    """``z_j`` on a (rows, 128) window: ``z_j[r, l] = W[r, l − l%B + j]``
-    — B static lane rolls selected by ``l % B`` (no gather)."""
-    if B == 1:
-        return W
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, _LANE), 1)
-    m = lane % B
-    out = None
-    for r in range(B):
-        # lanes with l % B == r read W rolled left by (j − r)
-        sel = (m == r).astype(W.dtype)
-        rolled = jnp.roll(W, r - j, axis=1) if r != j else W
-        t = sel * rolled
-        out = t if out is None else out + t
-    return out
-
-
-def _bsr_kernel(data_ref, wm1_ref, w0_ref, wp1_ref, out_ref, *, ts, kb, B,
-                slot_offsets):
-    W = jnp.concatenate(
-        [wm1_ref[...], w0_ref[...], wp1_ref[...]], axis=0
-    )
-    acc = None
-    for j in range(B):
-        Zj = _block_replica(W, j, B)
-        for s in range(kb):
-            d = int(slot_offsets[s]) * B
-            a, b = divmod(d, _LANE)
-            sh = _shift_rows(Zj, ts + a, ts, b)
-            t = data_ref[s * B + j] * sh
-            acc = t if acc is None else acc + t
-    out_ref[...] = acc
-
-
-def spmv_bsr(M, x):
-    """``y = M x`` through the blocked-band Pallas kernel (call
-    :func:`supports` first)."""
-    n = M.shape[0]
-    B = M.blocksize[0]
-    kb = M.kb
-    tr = pick_tile_rows(n, kb, B, M.slot_offsets)
-    ts = tr // _LANE
-    nr = n // _LANE
-    nt = nr // ts
-    x2 = x.reshape(nr, _LANE)
-    d3 = M.data.reshape(kb * B, nr, _LANE)
-    kern = functools.partial(
-        _bsr_kernel, ts=ts, kb=kb, B=B,
-        slot_offsets=tuple(M.slot_offsets),
-    )
-    interpret = jax.default_backend() != "tpu"
-    extra = (
-        {}
-        if interpret
-        else {
-            "compiler_params": pltpu.CompilerParams(
-                vmem_limit_bytes=64 * 1024 * 1024
-            )
-        }
-    )
-    out = pl.pallas_call(
-        kern,
-        grid=(nt,),
-        in_specs=[
-            pl.BlockSpec(
-                (kb * B, ts, _LANE), lambda i: (0, i, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (ts, _LANE),
-                lambda i: (jnp.maximum(i - 1, 0), 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (ts, _LANE), lambda i: (i, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (ts, _LANE),
-                lambda i: (jnp.minimum(i + 1, nt - 1), 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (ts, _LANE), lambda i: (i, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((nr, _LANE), x.dtype),
-        interpret=interpret,
-        **extra,
-    )(d3, x2, x2, x2)
-    return out.reshape(n)
+__all__ = ["spmv_banded_jnp"]
 
 
 def _flat_shift(v, d):
@@ -180,9 +32,8 @@ def _flat_shift(v, d):
 
 
 def spmv_banded_jnp(M, x):
-    """Gather-free jnp SpMV on the slot-major banded layout (the fallback
-    when the Pallas tiling doesn't fit — still no gather: block-aligned
-    replicas + static flat shifts, which XLA fuses well)."""
+    """Gather-free SpMV on the slot-major banded layout: block-aligned
+    replicas + static flat shifts, which XLA fuses."""
     B = M.blocksize[0]
     n = M.shape[0]
     nbr = n // B

@@ -1,15 +1,13 @@
 """Double-float (two-f32, "double-word") arithmetic for the outer residual.
 
-TPUs have no native float64, and on this environment's TPU backend any
-program containing f64 reductions/dots pays a 40–400 s lazy-compile penalty
-(measured; see .claude/skills/verify/SKILL.md).  SURVEY.md §7 "Hard parts"
-Plan A is therefore implemented natively: the defect-correction residual
+SURVEY.md §7 "Hard parts" Plan A: the defect-correction residual
 ``r = b − A x`` is evaluated in **double-float** arithmetic — each value is
 an unevaluated sum ``hi + lo`` of two float32s (~49-bit effective mantissa,
 unit roundoff ~2⁻⁴⁹ ≈ 1.8e-15) — using the classical error-free
 transformations (Knuth TwoSum, Dekker TwoProd/split).  All operations are
-elementwise f32 VPU code: fast to compile, fast to run, exactly what the
-hardware is good at.
+elementwise f32 code that needs no float64 on the device.  It is the
+default high-precision residual off the CPU; whether native f64 is faster
+on a given card is an open measurement (ROADMAP Speed 4).
 
 A note on compiler semantics: TwoSum uses only adds/subs (XLA does not
 reassociate floating point), and TwoProd's multiply-add pairs may legally be

@@ -1,55 +1,18 @@
-"""Pallas ELL SpMV — the general-sparse engine's kernel tier (SURVEY.md
-§2B T3 "Pallas CSR/BSR SpMV tiled over VMEM").
+"""Banded ELL helpers: slot-offset detection and the gather-free SpMV.
 
-Hardware reality first (measured on the v5e via on-chip probes,
-2026-08-20): Mosaic's ``tpu.dynamic_gather`` lowers ``take_along_axis``
-only as a **within-register shuffle** — lane gathers need the lane dim
-exactly 128, sublane gathers exactly 8 ((8,128)/(32,128) axis=1 compile
-and validate; (1,128), (8,256), (256,128) axis=0 all fail or crash the
-compiler).  A VMEM-wide dynamic gather therefore cannot be written in
-Pallas on this generation, and an "ELL SpMV kernel" that gathers
-arbitrary columns is not a TPU-native design.  What IS TPU-native:
-
-* **Slot-offset (DIA) fast path** — detected at container build: when
-  every slot's true entries satisfy ``col == row + d_j`` for a constant
-  per-slot delta (true of the Poisson family, banded matrices, and any
-  matrix assembled slot-per-neighbor), the SpMV is a static flat shift
-  per slot.  The kernel streams ONLY ``data`` (4 B/nnz — half the CSR
-  roofline model's 12 B/nnz, so >1 speedups vs the 8e10 baseline are
-  expected) plus a 3-tile ``x`` window, and implements each shift
-  ``d = 128·a + b`` as two static sublane slices + static lane rolls +
-  a lane select — no gather instruction at all.  Pad slots carry
-  ``data == 0``, which makes every out-of-band window read inert.
-* **Everything else** falls back to XLA's native gather
-  (``ops/sparse.py::spmv`` jnp path) — the XLA TPU runtime's
-  scatter/gather engine is the correct tool for truly unstructured
-  columns; wrapping it in Pallas would add nothing.
-
-Correctness: pinned against the jnp gather path in interpreter mode
-(tests/test_sparse.py); compiled on-chip at the 256³ Poisson ELL
-(TR = 131072-row tiles, k = 7) by scripts/tpu_smoke.py.
+When every slot's true entries satisfy ``col == row + d_j`` for a
+constant per-slot delta (true of the Poisson family, banded matrices, and
+any matrix assembled slot-per-neighbor), the SpMV needs no gather: each
+slot is a static shifted slice of the zero-padded ``x``, which XLA fuses
+into one loop nest.  Irregular matrices use the gather path in
+:func:`openmg_tpu.ops.sparse.spmv`.
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-__all__ = [
-    "supports",
-    "pick_tile_rows",
-    "spmv_ell",
-    "spmv_banded_jnp",
-    "prefer_kernel",
-    "detect_slot_offsets",
-]
-
-_LANE = 128
-_VMEM_BUDGET = 24 * 1024 * 1024  # double-buffered in/out blocks
+__all__ = ["spmv_banded_jnp", "detect_slot_offsets"]
 
 
 def detect_slot_offsets(data, cols):
@@ -79,31 +42,6 @@ def detect_slot_offsets(data, cols):
     return tuple(offsets)
 
 
-def pick_tile_rows(n: int, k: int, slot_offsets):
-    """Tile height TR = TS·128: a multiple of 1024 (TS % 8) dividing
-    ``n``, with ``max|d| ≤ TR − 128`` (the 3-tile window's reach after
-    the sublane/lane split) and a VMEM fit."""
-    if slot_offsets is None or n % _LANE:
-        return None
-    max_d = max((abs(int(d)) for d in slot_offsets), default=0)
-    tr = 8 * _LANE
-    while tr < max_d + _LANE or n % tr:
-        tr += 8 * _LANE
-        if tr > n:
-            return None
-    # data blocks (k, TS, 128)·4 B + 3 windows + out, double-buffered
-    if 2 * (tr * k * 4 + 4 * tr * 4) > _VMEM_BUDGET:
-        return None
-    return tr
-
-
-def supports(M) -> bool:
-    n, m = M.shape
-    if n != m or M.data.dtype != jnp.float32:
-        return False
-    return pick_tile_rows(n, M.k, M.slot_offsets) is not None
-
-
 def spmv_banded_jnp(data, slot_offsets, x):
     """Gather-free jnp SpMV of a slot-offset ELL: zero-pad + per-slot
     static shifted slices (``y[i] = Σ_j data[j,i]·xe[i+d_j+H]``).  XLA
@@ -119,103 +57,3 @@ def spmv_banded_jnp(data, slot_offsets, x):
         t = data[j] * lax.slice_in_dim(xe, H + int(d), H + int(d) + n)
         acc = t if acc is None else acc + t
     return acc
-
-
-def prefer_kernel(M) -> bool:
-    """Pallas-DIA vs jnp-shifted-slices dispatch for a banded ELL, from
-    same-process on-chip A/Bs (2026-08-21, scripts/bench_sparse_dist_chip
-    + probe): the kernel reads ~(k+1)·4 B/row vs jnp's ~2k·4 B/row, and
-    wins when the band is WIDE (far slots are separate HBM streams for
-    XLA: 0.63 vs 1.12 ms at 128³ Poisson, H = 128²) and the matrix is
-    big enough to clear the launch floor (64³ flips: 0.87 vs 0.77 ms).
-    Narrow bands fuse into one stream and jnp wins regardless of size
-    (pentadiagonal 4M rows: 1.43 vs 1.99 ms)."""
-    if not supports(M):
-        return False
-    H = max((abs(int(d)) for d in M.slot_offsets), default=0)
-    return H > _LANE and M.shape[0] >= (1 << 20)
-
-
-def _shift_rows(W, s0, ts, b):
-    """Rows ``W[s0 : s0+ts]`` lane-shifted left by ``b`` with carry-in
-    from the next sublane row — the flat shift ``x[i + 128·a + b]`` on a
-    ``(rows, 128)`` view, all static slices/rolls (no gather)."""
-    Xa = jax.lax.slice_in_dim(W, s0, s0 + ts, axis=0)
-    if b == 0:
-        return Xa
-    Xa1 = jax.lax.slice_in_dim(W, s0 + 1, s0 + 1 + ts, axis=0)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, _LANE), 1)
-    r0 = jnp.roll(Xa, -b, axis=1)
-    r1 = jnp.roll(Xa1, -b, axis=1)
-    return jnp.where(lane < _LANE - b, r0, r1)
-
-
-def _dia_kernel(data_ref, wm1_ref, w0_ref, wp1_ref, out_ref, *, ts, k,
-                slot_offsets):
-    # 3-tile window, (3·TS, 128): rows (i−1, i, i+1)·TS of the x view
-    W = jnp.concatenate(
-        [wm1_ref[...], w0_ref[...], wp1_ref[...]], axis=0
-    )
-    acc = None
-    for j in range(k):
-        d = int(slot_offsets[j])
-        a, b = divmod(d, _LANE)  # b ∈ [0, 128) even for negative d
-        sh = _shift_rows(W, ts + a, ts, b)
-        t = data_ref[j] * sh
-        acc = t if acc is None else acc + t
-    out_ref[...] = acc
-
-
-def spmv_ell(M, x):
-    """``y = M x`` through the slot-offset Pallas kernel (see module
-    docstring; call :func:`supports` first)."""
-    n = M.shape[0]
-    k = M.k
-    tr = pick_tile_rows(n, k, M.slot_offsets)
-    ts = tr // _LANE
-    nr = n // _LANE
-    nt = nr // ts
-    x2 = x.reshape(nr, _LANE)
-    d3 = M.data.reshape(k, nr, _LANE)
-    kern = functools.partial(
-        _dia_kernel, ts=ts, k=k, slot_offsets=tuple(M.slot_offsets)
-    )
-    interpret = jax.default_backend() != "tpu"
-    extra = (
-        {}
-        if interpret
-        else {
-            "compiler_params": pltpu.CompilerParams(
-                vmem_limit_bytes=64 * 1024 * 1024
-            )
-        }
-    )
-    out = pl.pallas_call(
-        kern,
-        grid=(nt,),
-        in_specs=[
-            pl.BlockSpec(
-                (k, ts, _LANE), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (ts, _LANE),
-                lambda i: (jnp.maximum(i - 1, 0), 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (ts, _LANE), lambda i: (i, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (ts, _LANE),
-                lambda i: (jnp.minimum(i + 1, nt - 1), 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (ts, _LANE), lambda i: (i, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((nr, _LANE), x.dtype),
-        interpret=interpret,
-        **extra,
-    )(d3, x2, x2, x2)
-    return out.reshape(n)

@@ -2,7 +2,7 @@
 
 The reference pre-smooths with lexicographic Gauss–Seidel
 (``iterative_solve``, SURVEY.md R4) — inherently sequential over rows.  The
-TPU build uses the two order-free variants named by BASELINE:
+build uses the two order-free variants named by BASELINE:
 
 * weighted Jacobi  ``x ← x + ω D⁻¹ (b − A x)``  (T3), and
 * red–black Gauss–Seidel — update the red parity class from black, then
@@ -10,13 +10,10 @@ TPU build uses the two order-free variants named by BASELINE:
   operators and all aggregation-Galerkin coarsenings of them, which stay
   (2d+1)-point) this is exactly Gauss–Seidel in the red-black ordering.
 
-These are the jnp reference implementations; XLA already fuses each sweep
-into a single HBM-streaming loop nest.  The red/black parity mask is
-generated inline from broadcasted iota (XLA fuses it — index parity costs
-zero HBM traffic, where a stored bool mask would stream 1 byte/point per
-half-sweep).  The Pallas fused kernels (:mod:`openmg_tpu.ops.kernels`)
-implement the same math with explicit VMEM tiling and are tested against
-these.
+XLA fuses each sweep into one loop nest that reads ``x`` and ``b`` once
+from device memory.  The red/black parity mask is generated inline from
+broadcasted iota (XLA fuses it — index parity costs no memory traffic,
+where a stored bool mask would stream 1 byte/point per half-sweep).
 
 Iteration counts are static (Python ints), so sweeps unroll at trace time.
 """
@@ -33,13 +30,10 @@ from openmg_tpu.ops.stencil import (
     apply,
     diag_index,
     face_apply,
-    region_apply,
-    region_rows,
     region_table,
     residual,
     set_plane,
     shift,
-    write_region,
 )
 
 __all__ = [
@@ -203,8 +197,8 @@ def chebyshev(
     Chebyshev sense; K=1 with λmax=2 is exactly ω=2/3 weighted Jacobi
     (pinned by tests).  Order-free (pure Jacobi building blocks), so it
     distributes exactly like Jacobi.  Each iteration costs one A-apply —
-    the ``residual`` fast path (Pallas on constant 3D stencils) computes
-    both the initial residual and the ``r ← r − A d`` updates.
+    ``residual`` computes both the initial residual and the
+    ``r ← r − A d`` updates.
     """
     if lam_max is None:
         lam_max = gershgorin_lambda_max(op, inv_diag)
@@ -222,95 +216,27 @@ def chebyshev(
     return x
 
 
-def _cornered_fix_half_sweep(op, tbl, b, x_old, x_new, mode, omega, color):
-    """Overwrite the face/edge/corner rows of ``x_new`` with the exact
-    half-sweep update computed from ``x_old`` (pre-sweep iterate), pass per
-    region in ascending |S| order — deeper regions overwrite, so every row
-    ends with its exact-tap update (:class:`CorneredOperator` semantics).
-    All taps per pass are scalars from the region table."""
-    di = diag_index(op.offsets)
-    for r, R in enumerate(op.regions):
-        diag = tbl[r, di]
-        b_R = region_rows(b, R)
-        x_R = region_rows(x_old, R)
-        if mode == "jacobi":
-            om = jnp.asarray(omega, dtype=x_R.dtype)
-            upd = x_R + om * (b_R - region_apply(op, tbl, r, R, x_old)) / diag
-        else:  # red-black half-sweep, this color only
-            xn = (
-                b_R
-                - region_apply(op, tbl, r, R, x_old, exclude_diag=True)
-            ) / diag
-            red = parity_mask_expr(x_R.shape)
-            m = red if color == 0 else ~red
-            upd = jnp.where(m, xn, x_R)
-        x_new = write_region(x_new, R, upd)
-    return x_new
-
-
 def cornered_inv_diag_full(op: CorneredOperator, dtype=None):
-    """Full-grid exact 1/diag for a cornered operator (Chebyshev/diagnostic
-    use; the half-sweep paths never materialize it)."""
+    """Full-grid exact 1/diag for a cornered operator (diagnostic use;
+    the smoothers keep the broadcastable tap form)."""
     dtype = dtype or op.dtype
-    tbl = region_table(op)
-    di = diag_index(op.offsets)
-    invd = jnp.full(op.grid_shape, 1.0 / op.values[di], dtype=dtype)
-    for r, R in enumerate(op.regions):
-        block_shape = tuple(
-            1 if b in R else s for b, s in enumerate(op.grid_shape)
-        )
-        block = jnp.broadcast_to(
-            (1.0 / tbl[r, di]).astype(dtype), block_shape
-        )
-        invd = write_region(invd, R, block)
-    return invd
+    inv = 1.0 / op.tap_stencil().coeff(diag_index(op.offsets))
+    return jnp.broadcast_to(inv, op.grid_shape).astype(dtype)
 
 
-def _smooth_cornered(name, op, b, x, iterations, omega, use_pallas):
-    """Smoothing on a cornered operator: constant-stencil half-sweeps on
-    the full grid (deep-fused Pallas with in-kernel region fix-ups when
-    supported; else per-half-sweep kernel/jnp + region fix-ups)."""
-    from openmg_tpu.ops import fused, kernels
-
-    const = op.const_op
-    di = diag_index(op.offsets)
-    inv_d = 1.0 / op.values[di]
+def _smooth_cornered(name, op, b, x, iterations, omega):
+    """Smoothing on a cornered operator: the plain sweeps on its exact
+    taps (:func:`openmg_tpu.ops.stencil.cornered_taps`), so each
+    half-sweep is one fused loop nest with no boundary passes."""
+    taps = op.tap_stencil()
+    inv_d = 1.0 / taps.coeff(diag_index(op.offsets))
     if name == "chebyshev":
-        return chebyshev(op, cornered_inv_diag_full(op, x.dtype), b, x, iterations)
-    if use_pallas and x.dtype == jnp.float32:
-        y = fused.smooth_fused(name, op, b, x, iterations, omega)
-        if y is not None:
-            return y
-    tbl = region_table(op)
-    pall = (
-        use_pallas
-        and x.dtype == jnp.float32
-        and kernels.supports(op.offsets, x.shape)
-    )
-    for _ in range(iterations):
-        if name == "jacobi":
-            if pall:
-                xn = kernels.jacobi_const_3d(
-                    op.values, op.offsets, b, x, 1, omega
-                )
-            else:
-                xn = jacobi(const, inv_d, b, x, 1, omega)
-            x = _cornered_fix_half_sweep(op, tbl, b, x, xn, "jacobi", omega, 0)
-        elif name == "rbgs":
-            red = parity_mask_expr(x.shape)
-            for color in (0, 1):
-                if pall:
-                    xn = kernels.rbgs_half_sweep_const_3d(
-                        op.values, op.offsets, b, x, color
-                    )
-                else:
-                    upd = inv_d * (b - _offdiag_apply(const, x))
-                    m = red if color == 0 else ~red
-                    xn = jnp.where(m, upd, x)
-                x = _cornered_fix_half_sweep(op, tbl, b, x, xn, "rb", omega, color)
-        else:
-            raise ValueError(f"unknown smoother {name!r}")
-    return x
+        return chebyshev(op, inv_d, b, x, iterations)
+    if name == "jacobi":
+        return jacobi(taps, inv_d, b, x, iterations, omega)
+    if name == "rbgs":
+        return rbgs(taps, inv_d, b, x, iterations)
+    raise ValueError(f"unknown smoother {name!r}")
 
 
 def _faced_fix_half_sweep(op, b, x_old, x_new, mode, omega, color):
@@ -339,21 +265,12 @@ def _faced_fix_half_sweep(op, b, x_old, x_new, mode, omega, color):
     return x_new
 
 
-def _smooth_faced(name, op, b, x, iterations, omega, use_pallas):
+def _smooth_faced(name, op, b, x, iterations, omega):
     """Smoothing on a faced operator: constant-stencil half-sweeps on the
-    full grid (Pallas fast path when supported) + exact face fix-ups after
-    every half-sweep.  Multi-stage fusion is disabled — a fused stage would
-    propagate wrong face values inward."""
-    from openmg_tpu.ops import kernels
-
+    full grid + exact face fix-ups after every half-sweep."""
     const = op.const_op
     di = diag_index(op.offsets)
     inv_d = 1.0 / op.values[di]
-    pall = (
-        use_pallas
-        and x.dtype == jnp.float32
-        and kernels.supports(op.offsets, x.shape)
-    )
     if name == "chebyshev":
         # Chebyshev is residual-based: residual() dispatches exactly on the
         # faced operator; the preconditioner diag uses the exact faces.
@@ -365,34 +282,18 @@ def _smooth_faced(name, op, b, x, iterations, omega, use_pallas):
         return chebyshev(op, invd_full, b, x, iterations)
     for _ in range(iterations):
         if name == "jacobi":
-            if pall:
-                xn = kernels.jacobi_const_3d(
-                    op.values, op.offsets, b, x, 1, omega
-                )
-            else:
-                xn = jacobi(const, inv_d, b, x, 1, omega)
+            xn = jacobi(const, inv_d, b, x, 1, omega)
             x = _faced_fix_half_sweep(op, b, x, xn, "jacobi", omega, 0)
         elif name == "rbgs":
             red = parity_mask_expr(x.shape)
             for color in (0, 1):
-                if pall:
-                    xn = _rb_half_sweep_kernel(op, b, x, color)
-                else:
-                    upd = inv_d * (b - _offdiag_apply(const, x))
-                    m = red if color == 0 else ~red
-                    xn = jnp.where(m, upd, x)
+                upd = inv_d * (b - _offdiag_apply(const, x))
+                m = red if color == 0 else ~red
+                xn = jnp.where(m, upd, x)
                 x = _faced_fix_half_sweep(op, b, x, xn, "rb", omega, color)
         else:
             raise ValueError(f"unknown smoother {name!r}")
     return x
-
-
-def _rb_half_sweep_kernel(op, b, x, color):
-    from openmg_tpu.ops import kernels
-
-    return kernels.rbgs_half_sweep_const_3d(
-        op.values, op.offsets, b, x, color
-    )
 
 
 def smooth(
@@ -403,45 +304,13 @@ def smooth(
     x,
     iterations: int,
     omega: float,
-    use_pallas: bool = True,
 ):
     if iterations <= 0:
         return x
     if isinstance(op, CorneredOperator):
-        return _smooth_cornered(name, op, b, x, iterations, omega, use_pallas)
+        return _smooth_cornered(name, op, b, x, iterations, omega)
     if isinstance(op, FacedStencilOperator):
-        return _smooth_faced(name, op, b, x, iterations, omega, use_pallas)
-    if use_pallas and op.is_constant and x.dtype == jnp.float32:
-        from openmg_tpu.ops import fused, kernels
-
-        # deep-fusion tier: S half-sweeps per HBM pass (ops/fused.py)
-        y = fused.smooth_fused(name, op, b, x, iterations, omega)
-        if y is not None:
-            return y
-        if kernels.supports(op.offsets, x.shape):
-            if name == "jacobi":
-                return kernels.jacobi_const_3d(
-                    op.values, op.offsets, b, x, iterations, omega
-                )
-            if name == "rbgs":
-                return kernels.rbgs_const_3d(op.values, op.offsets, b, x, iterations)
-    if (
-        use_pallas
-        and not op.is_constant
-        and x.dtype == jnp.float32
-        and name in ("jacobi", "rbgs")
-    ):
-        from openmg_tpu.ops import kernels
-
-        # varying-coefficient fast path (diffusion / general stencils)
-        if op.coeffs.dtype == jnp.float32 and kernels.supports_varying(
-            op.offsets, x.shape
-        ):
-            if name == "jacobi":
-                return kernels.jacobi_vary_3d(
-                    op.coeffs, op.offsets, b, x, iterations, omega
-                )
-            return kernels.rbgs_vary_3d(op.coeffs, op.offsets, b, x, iterations)
+        return _smooth_faced(name, op, b, x, iterations, omega)
     if name == "jacobi":
         return jacobi(op, inv_diag, b, x, iterations, omega)
     if name == "rbgs":

@@ -8,21 +8,21 @@ covers arbitrary sparse SPD matrices — anything a user of the reference
 could pass to ``mg_solve(A, b, parameters)`` (SURVEY.md R7) — at the cost
 of gather traffic in the SpMV.
 
-Design for XLA/TPU:
+Design for XLA:
 
 * every container is a frozen pytree dataclass of **statically-shaped**
   device arrays: nnz is padded at construction (pad entries carry
   ``data == 0`` at a valid coordinate, so they are provably inert in every
   kernel — SURVEY.md §7 "Hard parts"), and the padded sizes are part of the
   pytree structure, so one XLA compilation serves every cycle;
-* **ELL** is the TPU-preferred general layout: ``(n, k)`` data/column
-  planes make the SpMV a dense gather + row reduction — regular,
-  vectorizable, and the layout the Pallas general kernel tiles;
+* **ELL** is the preferred general layout: ``(k, n)`` data/column
+  planes make the SpMV a dense gather + row reduction — regular and
+  vectorizable, and gather-free for banded matrices;
 * **CSR** is the interchange format (scipy-compatible; SpMV via sorted
   ``segment_sum``);
 * **BSR** stores ``(br, bc)`` dense blocks in block-ELL layout; its SpMV
-  contracts block columns with ``einsum`` — MXU-eligible for larger blocks
-  and ~``1/(br·bc)`` the index traffic of CSR (BASELINE config 4 names BSR
+  contracts block columns with ``einsum`` at ~``1/(br·bc)`` the index
+  traffic of CSR (BASELINE config 4 names BSR
   operators at 256³).
 
 Conversions are host-side (scipy) and happen once at setup.
@@ -36,6 +36,7 @@ import functools
 import numpy as np
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 __all__ = [
     "CSRMatrix",
@@ -47,6 +48,7 @@ __all__ = [
     "bsr_from_scipy",
     "dense_from_scipy",
     "from_scipy",
+    "dense_matvec",
     "to_scipy",
     "spmv",
     "spmv_df",
@@ -107,15 +109,13 @@ class ELLMatrix:
     max-nnz-per-row) entries per row, stored as ``(k, nrows)`` planes.
 
     ``data[j, i]`` pairs with column ``cols[j, i]``; pad slots carry
-    ``data == 0`` at column 0.  Slot-major puts the length-``n`` row
-    dimension in TPU lanes (128-aligned, contiguous HBM streams per slot)
-    — the layout both XLA and the Pallas banded kernel
-    (:mod:`openmg_tpu.ops.ell`) want; row-major ``(n, k)`` would put the
-    tiny ``k`` in lanes and waste ~16× VMEM tile padding.
+    ``data == 0`` at column 0.  Slot-major makes each slot one contiguous
+    length-``n`` stream, which the banded SpMV
+    (:mod:`openmg_tpu.ops.ell`) reads as shifted slices.
 
     **Invariant:** when ``slot_offsets`` is not None, every true entry of
     slot ``j`` satisfies ``cols[j, i] == i + slot_offsets[j]`` (pads are
-    ``data == 0`` anywhere).  The Pallas DIA kernel trusts
+    ``data == 0`` anywhere).  The banded SpMV trusts
     ``slot_offsets`` and never reads ``cols``; the two builders
     (:func:`ell_from_scipy`, ``models.poisson.poisson_ell_device``)
     maintain the invariant, and hand-constructed / ``dataclasses.replace``'d
@@ -130,7 +130,7 @@ class ELLMatrix:
     bandwidth: int = 0  # max |col − row| over true entries (static)
     # per-slot constant column delta when every slot is offset-regular
     # (``col == row + slot_offsets[j]`` wherever data != 0) — the static
-    # structure the Pallas DIA fast path (ops/ell.py) keys on; None for
+    # structure the banded SpMV (ops/ell.py) keys on; None for
     # irregular matrices (jnp gather path).
     slot_offsets: tuple | None = None
 
@@ -166,11 +166,11 @@ class BSRMatrix:
       (the Poisson family, vector-PDE stencils, any block-banded matrix).
       ``data`` is then stored **slot-major** as ``(kb, bc, n)``:
       ``data[J, j, I·br + i]`` is element ``(i, j)`` of block ``(I,
-      I + d_J)``.  The layout puts the length-``n`` row dimension in TPU
-      lanes (like :class:`ELLMatrix`) so the SpMV is gather-free: for
-      each (slot, block column j), a flat shift of the block-aligned
-      ``x`` replica by ``d_J·bc`` — the Pallas kernel tier
-      (:mod:`openmg_tpu.ops.bsr`) and the jnp fallback both use it.
+      I + d_J)``.  Each (slot, block column) is one contiguous
+      length-``n`` stream (like :class:`ELLMatrix`), so the SpMV is
+      gather-free: for each (slot, block column j), a flat shift of the
+      block-aligned ``x`` replica by ``d_J·bc``
+      (:mod:`openmg_tpu.ops.bsr`).
       ``bcols`` is kept for interchange (``to_scipy``).
 
     ``nnz`` counts true scalar nonzeros.
@@ -207,7 +207,7 @@ class BSRMatrix:
 class DenseMatrix:
     """Dense operator — the reference's ``dense=True`` debug mode
     (SURVEY.md R9, ``flexible_mmult``): the same cycle code runs with the
-    matrix materialized densely and the SpMV executed as one MXU matmul.
+    matrix materialized densely and the SpMV executed as one matmul.
     Only sensible for small/debug problems; ``nnz`` records the true
     sparse nonzero count so metrics stay comparable across formats.
     """
@@ -278,7 +278,7 @@ def ell_from_scipy(A, k: int | None = None, dtype=np.float32) -> ELLMatrix:
 
     Diagonal-structured matrices (few distinct ``col − row`` deltas —
     the Poisson family, banded systems) are packed **slot-per-offset**
-    so every slot is offset-regular and the Pallas DIA fast path
+    so every slot is offset-regular and the gather-free banded SpMV
     (:mod:`openmg_tpu.ops.ell`) engages; irregular matrices use compact
     per-row packing (jnp gather path).  Both are valid ELL — pads carry
     ``data == 0`` — and every consumer treats them identically.
@@ -472,23 +472,24 @@ def to_scipy(M):
 # ---------------------------------------------------------------------------
 
 
+def dense_matvec(A, x: jax.Array) -> jax.Array:
+    """``A @ x`` at full f32 (or f64) precision.  ``HIGHEST`` stops the
+    backend from rounding f32 operands to TF32, which keeps about three
+    digits and would stall the coarse solve of a 1e-10 solve."""
+    return jnp.matmul(A, x, precision=lax.Precision.HIGHEST)
+
+
 def spmv(M, x: jax.Array) -> jax.Array:
     """``y = M x`` for any container; ``x`` flat ``(ncols,)``.
 
     Pad entries contribute exactly 0 (zero data at valid coordinates).
     """
     if isinstance(M, ELLMatrix):
-        from openmg_tpu.ops import ell as _ell
-
         if M.slot_offsets is not None and x.dtype == M.dtype:
-            # banded: NEVER gather (XLA gather is ~750× off roofline on
-            # TPU).  Pallas DIA kernel for big wide-band matrices, jnp
-            # shifted slices otherwise (see ell.prefer_kernel).
-            if _ell.prefer_kernel(M) and x.dtype == jnp.float32:
-                return _ell.spmv_ell(M, x)
-            return _ell.spmv_banded_jnp(M.data, M.slot_offsets, x)
-        if _ell.supports(M) and x.dtype == jnp.float32:
-            return _ell.spmv_ell(M, x)
+            # banded: static shifted slices, no gather
+            from openmg_tpu.ops.ell import spmv_banded_jnp
+
+            return spmv_banded_jnp(M.data, M.slot_offsets, x)
         return jnp.sum(M.data * x[M.cols], axis=0)
     if isinstance(M, CSRMatrix):
         prod = M.data * x[M.indices]
@@ -498,16 +499,16 @@ def spmv(M, x: jax.Array) -> jax.Array:
     if isinstance(M, BSRMatrix):
         br, bc = M.blocksize
         if M.slot_offsets is not None:
-            from openmg_tpu.ops import bsr as _bsr
+            from openmg_tpu.ops.bsr import spmv_banded_jnp
 
-            if _bsr.supports(M) and x.dtype == jnp.float32:
-                return _bsr.spmv_bsr(M, x)
-            return _bsr.spmv_banded_jnp(M, x)
+            return spmv_banded_jnp(M, x)
         xb = x.reshape(-1, bc)[M.bcols]  # (nbr, kb, bc)
-        y = jnp.einsum("rkij,rkj->ri", M.data, xb)
+        y = jnp.einsum(
+            "rkij,rkj->ri", M.data, xb, precision=lax.Precision.HIGHEST
+        )
         return y.reshape(-1)
     if isinstance(M, DenseMatrix):
-        return M.data @ x
+        return dense_matvec(M.data, x)
     raise TypeError(f"not a sparse container: {type(M)}")
 
 
@@ -520,19 +521,16 @@ def spmv_df(M_hi, M_lo, x_hi, x_lo):
     each term goes through compensated two-f32 products/sums
     (:mod:`openmg_tpu.ops.doublefloat`).
     """
-    from jax import lax
-
     from openmg_tpu.ops.doublefloat import df_add, df_mul
 
     if not isinstance(M_hi, ELLMatrix):
         raise TypeError("spmv_df requires ELL residual operators")
     if M_hi.slot_offsets is not None:
         # banded fast path: per-slot static shifted slices of the
-        # zero-padded vector instead of gathers — XLA's gather is ~750×
-        # off the DIA roofline on TPU (ops/ell.py), and this outer
-        # residual runs every defect-correction step.  Values are
-        # identical to the gather path (same slots, same order), so the
-        # compensated arithmetic is bitwise unchanged.
+        # zero-padded vector instead of gathers (this outer residual runs
+        # every defect-correction step).  Values are identical to the
+        # gather path (same slots, same order), so the compensated
+        # arithmetic is bitwise unchanged.
         n = M_hi.shape[0]
         H = max((abs(int(d)) for d in M_hi.slot_offsets), default=0)
         xe_h = jnp.pad(x_hi, (H, H)) if H else x_hi

@@ -4,7 +4,7 @@ The reference builds an explicit sparse aggregation matrix R with
 ``R[c, f] = 1/2^d`` over each coarse point's ``2^d`` fine children and uses
 ``P = Rᵀ`` (SURVEY.md R2).  On grid-shaped arrays those products are exact
 strided-slice/interleave operations — no sparse matrix, no gather — which is
-how the TPU build executes them.
+how this build executes them.
 
 Transfers are *separable*: a per-axis tap list ``(offset t, weight w)``
 defines ``R_axis[c, f] = Σ_t w·[f = 2c + t]`` and analogously for P; the
@@ -32,10 +32,7 @@ Dims of size 1 are never coarsened.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
-import numpy as np
-import jax
 import jax.numpy as jnp
 from jax import lax
 
@@ -48,12 +45,6 @@ __all__ = [
     "restrict",
     "prolong",
 ]
-
-# Transfer execution backend: "auto" picks per axis (matmul on TPU for the
-# lane/sublane axes where strided interleaves force relayouts; slices
-# elsewhere); "slice" / "matmul" force one path (tests pin their agreement).
-BACKEND = "auto"
-
 
 @dataclasses.dataclass(frozen=True)
 class Transfer:
@@ -142,73 +133,11 @@ def _prolong_axis(u, axis: int, taps):
     return stacked.reshape(new_shape)
 
 
-# ---------------------------------------------------------------------------
-# MXU path: per-axis transfers as small dense matmuls.
-#
-# The slice path's stride-2 decimation/interleave along the last two grid
-# axes (TPU lane/sublane dims) forces Mosaic relayouts — measured ~4× off
-# the HBM roofline at 256³.  A per-axis transfer is a tiny structured-banded
-# matrix; contracting with it is one MXU matmul per axis, which XLA tiles
-# and fuses well.  The matrices are trace-time numpy constants (≤ 512×256
-# f32 ≈ 512 KB — negligible against grid traffic) built from the same tap
-# lists, so boundaries (zero-fill OOB) are bit-identical by construction;
-# Precision.HIGHEST keeps the products exact f32 (tap weights are powers of
-# two).  tests/test_transfer.py pins matmul == slice on every path.
-# ---------------------------------------------------------------------------
-
-
-@functools.lru_cache(maxsize=None)
-def _axis_matrix(n: int, taps, dtype_str: str):
-    """M[f, c] = Σ_t w·[f = 2c + t] (zero-fill out of domain)."""
-    nc = n // 2
-    M = np.zeros((n, nc), dtype=dtype_str)
-    for t, w in taps:
-        for c in range(nc):
-            f = 2 * c + t
-            if 0 <= f < n:
-                M[f, c] += w
-    return M
-
-
-def _restrict_axis_mm(v, axis: int, taps):
-    M = jnp.asarray(_axis_matrix(v.shape[axis], taps, str(v.dtype)))
-    out = jnp.tensordot(v, M, axes=([axis], [0]),
-                        precision=lax.Precision.HIGHEST)
-    return jnp.moveaxis(out, -1, axis)
-
-
-def _prolong_axis_mm(u, axis: int, taps):
-    M = jnp.asarray(_axis_matrix(2 * u.shape[axis], taps, str(u.dtype)))
-    out = jnp.tensordot(u, M, axes=([axis], [1]),
-                        precision=lax.Precision.HIGHEST)
-    return jnp.moveaxis(out, -1, axis)
-
-
-def _use_matmul(shape, axis: int) -> bool:
-    if BACKEND == "matmul":
-        return True
-    if BACKEND == "slice":
-        return False
-    # auto: lane/sublane axes on TPU, where strided slice-interleave is a
-    # relayout; leading axes stride cleanly and stay on the slice path.
-    # Upper cap: the dense (n, n/2) per-axis matrix is O(n²) — fine for
-    # grid axes (≤ ~1k), ruinous for long flat axes (a 4M-row 1D problem
-    # would ask for 32 TiB), which take the slice path instead.
-    return (
-        jax.default_backend() == "tpu"
-        and axis >= len(shape) - 2
-        and 32 <= shape[axis] <= 2048
-    )
-
-
 def restrict(v, transfer: Transfer = AGGREGATE):
     """``R v`` (fine → coarse), separably over all coarsenable axes."""
     out = v
     for a in _coarsened_axes(v.shape):
-        if _use_matmul(v.shape, a):
-            out = _restrict_axis_mm(out, a, transfer.r_taps)
-        else:
-            out = _restrict_axis(out, a, transfer.r_taps)
+        out = _restrict_axis(out, a, transfer.r_taps)
     return out
 
 
@@ -226,8 +155,5 @@ def prolong(u, fine_shape, transfer: Transfer = AGGREGATE):
             raise ValueError(f"incompatible shapes {u.shape} -> {fine_shape}")
     out = u
     for a in axes:
-        if _use_matmul(fine_shape, a):
-            out = _prolong_axis_mm(out, a, transfer.p_taps)
-        else:
-            out = _prolong_axis(out, a, transfer.p_taps)
+        out = _prolong_axis(out, a, transfer.p_taps)
     return out

@@ -1,36 +1,27 @@
-"""Fast-representation tier for *partitioned* levels (T10 + BASELINE
-weak-scaling north star).
+"""Constant and cornered stencil levels, row-partitioned inside
+``shard_map`` (T10).
 
-The single-device solver runs constant/cornered stencil levels through the
-Pallas kernel tier (ops/kernels.py, ops/fused.py); this module brings the
-same representations to row-partitioned levels inside ``shard_map``:
-
-* **Halo planes go INTO the kernel.**  Each partitioned half-sweep is ONE
-  Pallas pass: the two ``ppermute``-received (1, ny, nx) halo planes are
-  extra kernel inputs, substituted (instead of the Dirichlet zero) at the
-  local block's z edges (``kernels.halo_half_sweep_{const,vary}_3d``).
-  Measured on-chip at 256³: the earlier zero-halo-kernel + jnp
-  boundary-epilogue + concatenate structure cost 3.5× the single-device
-  sweep; the in-kernel halos make the partitioned sweep ~the
-  single-device sweep plus two tiny plane streams.  Only the halo-plane
-  inputs depend on the collective, so XLA can still overlap the permute
-  with anything preceding the sweep.
+* **Halo planes feed the local sweep.**  Each partitioned half-sweep reads
+  the two ``ppermute``-received (1, ny, nx) halo planes in place of the
+  Dirichlet zero at the local block's axis-0 edges
+  (:func:`openmg_tpu.parallel.halo.apply_overlapped`).  Only the halo
+  reads depend on the collective, so XLA can overlap the permute with the
+  interior part of the sweep.
 * **Cornered levels distribute natively.**  A
   :class:`~openmg_tpu.ops.stencil.CorneredOperator`'s (values, deltas)
   tables are O(K) replicated scalars — no 27-coefficient varying arrays
-  are ever materialized or sharded.  Region fix-ups are made halo-aware:
-  regions containing grid axis 0 live only on device 0 (global row 0) and
-  are gated on ``lax.axis_index``; regions on unpartitioned axes span all
-  devices and read their axis-0 neighbors through the halo planes.
+  are ever materialized or sharded.  Its exact taps are generated on the
+  local block from iota (:func:`~openmg_tpu.ops.stencil.cornered_taps`);
+  the axis-0 boundary plane exists only on device 0 (global row 0) and
+  is gated on ``lax.axis_index``.
 
 Correctness is pinned by tests/test_parallel.py: partitioned solves (8
-fake CPU devices, interpreter-mode Pallas) match single-device solves to
-fp tolerance for cornered linear-transfer hierarchies.
+virtual CPU devices) match single-device solves to fp tolerance for
+cornered linear-transfer hierarchies.
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 from jax import lax
 
@@ -39,28 +30,13 @@ from openmg_tpu.ops.stencil import (
     CorneredOperator,
     StencilOperator,
     diag_index,
-    region_rows,
-    region_table,
-    shift,
-    write_region,
 )
-from openmg_tpu.parallel.halo import (
-    _plane_shift,
-    apply_overlapped,
-    halo_planes,
-    halo_slabs,
-    open_flags,
-)
+from openmg_tpu.parallel.halo import apply_overlapped, halo_planes
 
 __all__ = [
     "is_fast_op",
     "smooth_part",
     "residual_part",
-    "smooth_part_vary",
-    "residual_part_vary",
-    "presmooth_restrict_part",
-    "prolong_smooth_part",
-    "residual_restrict_part",
 ]
 
 
@@ -71,219 +47,40 @@ def is_fast_op(op) -> bool:
     )
 
 
-def _use_kernel(offsets, x) -> bool:
-    from openmg_tpu.ops import kernels
-
-    return x.dtype == jnp.float32 and kernels.supports(offsets, x.shape)
-
-
-_KMODE = {"jacobi": "jacobi", "rb": "rbgs", "residual": "residual"}
-
-
-def _edge_parity_mask(plane_shape, zpar: int, color: int):
-    """Parity mask of a boundary plane (any grid ndim): global parity ==
-    local parity because the partition plan guarantees an even per-device
-    block; ``zpar`` is the parity of the boundary row's local axis-0
-    index."""
-    acc = jnp.int32(zpar)
-    for a in range(1, len(plane_shape)):
-        acc = acc + lax.broadcasted_iota(jnp.int32, plane_shape, a)
-    return (acc & 1) == color
+def _local_op(op, shape, axis_name, n_dev: int):
+    """The level's operator on the local block: the constant stencil, or a
+    cornered operator's exact taps with axis 0's boundary plane gated to
+    the device holding global row 0."""
+    if isinstance(op, CorneredOperator):
+        first = lax.axis_index(axis_name) == 0 if n_dev > 1 else None
+        return op.tap_stencil(shape, axis0_first=first)
+    return StencilOperator(None, op.offsets, op.values, shape)
 
 
-def _epilogue_fix(mode, xk, corr_lo, corr_hi, inv_lo, inv_hi, omega, color):
-    """Apply boundary-row halo corrections to a zero-halo sweep output
-    (the 2D-block path — 3D blocks consume halos in-kernel instead)."""
-    local = xk.shape[0]
+def _half_sweep(mode, op, b, x, omega, color, lower, upper):
+    """One half-sweep (or residual) on the local block, halo-exact: the
+    received halo planes stand in for the Dirichlet zero at the block's
+    axis-0 edges."""
+    inv_diag = 1.0 / op.coeff(diag_index(op.offsets))
     if mode == "jacobi":
-        om = jnp.asarray(omega, dtype=xk.dtype)
-        first = xk[:1] - om * inv_lo * corr_lo
-        last = xk[-1:] - om * inv_hi * corr_hi
-    elif mode == "rb":
-        m_lo = _edge_parity_mask(corr_lo.shape, 0, color)
-        m_hi = _edge_parity_mask(corr_hi.shape, (local - 1) & 1, color)
-        first = xk[:1] - jnp.where(m_lo, inv_lo * corr_lo, 0.0)
-        last = xk[-1:] - jnp.where(m_hi, inv_hi * corr_hi, 0.0)
-    else:
-        first = xk[:1] - corr_lo
-        last = xk[-1:] - corr_hi
-    return jnp.concatenate([first, xk[1:-1], last], axis=0)
-
-
-def _halo_corrections(coeff_row, offsets, lower, upper, dtype):
-    """Boundary-plane halo terms a zero-halo kernel omitted:
-    ``corr_lo = Σ_{o0=−1} c_k·shift_rest(lower, off)`` (row 0) and the
-    symmetric ``corr_hi`` (row local−1).  ``coeff_row(k, which)`` returns
-    tap k's coefficient at the named boundary row."""
-    corr_lo = None
-    corr_hi = None
-    for k, off in enumerate(offsets):
-        if off[0] == -1:
-            t = coeff_row(k, "lo") * _plane_shift(lower, off)
-            corr_lo = t if corr_lo is None else corr_lo + t
-        elif off[0] == 1:
-            t = coeff_row(k, "hi") * _plane_shift(upper, off)
-            corr_hi = t if corr_hi is None else corr_hi + t
-    zeros = jnp.zeros(lower.shape, dtype)
-    return (
-        corr_lo if corr_lo is not None else zeros,
-        corr_hi if corr_hi is not None else zeros,
-    )
-
-
-def _bulk_half_sweep(mode, values, offsets, b, x, omega, color, lower, upper):
-    """One constant-stencil half-sweep (or residual) on the local block,
-    halo-exact.  3D blocks: ONE Pallas pass with the received halo planes
-    consumed in-kernel at the block's z edges
-    (kernels.halo_half_sweep_const_3d — the earlier boundary-plane jnp
-    epilogue + concatenate cost 3.5× the single-device sweep at 256³
-    on-chip).  2D blocks: the lifted kernel's z axis is not the partition
-    axis, so they keep the zero-halo kernel + boundary-row epilogue.
-    Unsupported shapes: the jnp overlapped path."""
-    di = diag_index(offsets)
-    inv_d = 1.0 / values[di]
-    if not _use_kernel(offsets, x):
-        const = StencilOperator(None, offsets, values, x.shape)
-        if mode == "jacobi":
-            om = jnp.asarray(omega, dtype=x.dtype)
-            ax = apply_overlapped(const, x, lower, upper)
-            return x + om * inv_d * (b - ax)
-        if mode == "rb":
-            off_sum = apply_overlapped(const, x, lower, upper, exclude_diag=True)
-            xn = inv_d * (b - off_sum)
-            red = parity_mask_expr(x.shape)
-            m = red if color == 0 else ~red
-            return jnp.where(m, xn, x)
-        return b - apply_overlapped(const, x, lower, upper)
-
-    from openmg_tpu.ops import kernels
-
-    if x.ndim == 3:
-        return kernels.halo_half_sweep_const_3d(
-            values, offsets, b, x, _KMODE[mode], omega, color, lower, upper
-        )
-
-    if mode == "jacobi":
-        xk = kernels.jacobi_const_3d(values, offsets, b, x, 1, omega)
-    elif mode == "rb":
-        xk = kernels.rbgs_half_sweep_const_3d(values, offsets, b, x, color)
-    else:
-        xk = kernels.residual_const_3d(values, offsets, b, x)
-    corr_lo, corr_hi = _halo_corrections(
-        lambda k, which: values[k], offsets, lower, upper, x.dtype
-    )
-    return _epilogue_fix(mode, xk, corr_lo, corr_hi, inv_d, inv_d, omega, color)
-
-
-def _region_apply_dist(
-    op, tbl, r: int, R, x, lower, upper, exclude_diag: bool = False
-):
-    """Halo-aware :func:`openmg_tpu.ops.stencil.region_apply`: the exact
-    ``(A x)`` (or ``(A − D) x``) restricted to the region rows of ``R`` on
-    the local block.  When ``0 ∉ R`` the region spans all devices and its
-    axis-0 neighbor reads come through the halo planes; when ``0 ∈ R`` the
-    result is meaningful on device 0 only (gated by the caller)."""
-    di = diag_index(op.offsets)
-    local = x.shape[0]
-    acc = None
-    for k, off in enumerate(op.offsets):
-        if exclude_diag and k == di:
-            continue
-        if any(off[b] < 0 for b in R):
-            continue  # neighbor at i_b = −1 is outside the domain
-        idx_map = {b: off[b] for b in R}
-        src = region_rows(x, R, index=idx_map)
-        if 0 in R:
-            rest = tuple(0 if b in R else o for b, o in enumerate(off))
-            term = tbl[r, k] * shift(src, rest)
-        else:
-            o0 = off[0]
-            if o0 != 0:
-                lo_r = region_rows(lower, R, index=idx_map)
-                hi_r = region_rows(upper, R, index=idx_map)
-                ext = jnp.concatenate([lo_r, src, hi_r], axis=0)
-                src = lax.slice_in_dim(ext, 1 + o0, 1 + o0 + local, axis=0)
-            rest = tuple(
-                0 if (b in R or b == 0) else o for b, o in enumerate(off)
-            )
-            term = tbl[r, k] * shift(src, rest)
-        acc = term if acc is None else acc + term
-    if acc is None:
-        acc = jnp.zeros(region_rows(x, R).shape, x.dtype)
-    return acc
-
-
-def _cornered_fix_dist(
-    op, tbl, b, x_old, x_new, mode, omega, color, lower, upper,
-    axis_name, n_dev,
-):
-    """Overwrite the face/edge/corner rows of ``x_new`` with the exact
-    cornered update computed from ``x_old`` (single-device semantics:
-    ascending |S| so deeper regions overwrite).  Axis-0 regions exist only
-    on device 0 and are where-gated on the device index."""
-    di = diag_index(op.offsets)
-    idx = lax.axis_index(axis_name) if n_dev > 1 else 0
-    for r, R in enumerate(op.regions):
-        diag = tbl[r, di]
-        b_R = region_rows(b, R)
-        x_R = region_rows(x_old, R)
-        if mode == "jacobi":
-            om = jnp.asarray(omega, dtype=x_R.dtype)
-            upd = x_R + om * (
-                b_R - _region_apply_dist(op, tbl, r, R, x_old, lower, upper)
-            ) / diag
-        elif mode == "rb":
-            xn = (
-                b_R
-                - _region_apply_dist(
-                    op, tbl, r, R, x_old, lower, upper, exclude_diag=True
-                )
-            ) / diag
-            red = parity_mask_expr(x_R.shape)
-            m = red if color == 0 else ~red
-            upd = jnp.where(m, xn, x_R)
-        else:  # residual
-            upd = b_R - _region_apply_dist(op, tbl, r, R, x_old, lower, upper)
-        if 0 in R and n_dev > 1:
-            cur = region_rows(x_new, R)
-            upd = jnp.where(idx == 0, upd, cur)
-        x_new = write_region(x_new, R, upd)
-    return x_new
-
-
-def _cornered_inv_diag_part(op, tbl, shape, dtype, axis_name, n_dev):
-    """Exact 1/diag on the local block of a partitioned cornered level
-    (Chebyshev preconditioner): interior scalar + region overwrites,
-    axis-0 regions gated to device 0."""
-    di = diag_index(op.offsets)
-    idx = lax.axis_index(axis_name) if n_dev > 1 else 0
-    invd = jnp.full(shape, 1.0 / op.values[di], dtype=dtype)
-    for r, R in enumerate(op.regions):
-        block_shape = tuple(1 if b in R else s for b, s in enumerate(shape))
-        block = jnp.broadcast_to((1.0 / tbl[r, di]).astype(dtype), block_shape)
-        if 0 in R and n_dev > 1:
-            block = jnp.where(idx == 0, block, region_rows(invd, R))
-        invd = write_region(invd, R, block)
-    return invd
+        om = jnp.asarray(omega, dtype=x.dtype)
+        ax = apply_overlapped(op, x, lower, upper)
+        return x + om * inv_diag * (b - ax)
+    if mode == "rb":
+        off_sum = apply_overlapped(op, x, lower, upper, exclude_diag=True)
+        xn = inv_diag * (b - off_sum)
+        red = parity_mask_expr(x.shape)
+        m = red if color == 0 else ~red
+        return jnp.where(m, xn, x)
+    return b - apply_overlapped(op, x, lower, upper)
 
 
 def residual_part(op, b, x, axis_name, n_dev: int):
     """Halo-exact ``r = b − A x`` on the local block of a partitioned
-    constant/cornered level (Pallas bulk + epilogues)."""
-    cornered = isinstance(op, CorneredOperator)
-    values = op.values
-    offsets = op.offsets
+    constant/cornered level."""
     lower, upper = halo_planes(x, axis_name, n_dev)
-    r = _bulk_half_sweep(
-        "residual", values, offsets, b, x, 0.0, 0, lower, upper
-    )
-    if cornered:
-        tbl = region_table(op)
-        r = _cornered_fix_dist(
-            op, tbl, b, x, r, "residual", 0.0, 0, lower, upper,
-            axis_name, n_dev,
-        )
-    return r
+    local = _local_op(op, x.shape, axis_name, n_dev)
+    return _half_sweep("residual", local, b, x, 0.0, 0, lower, upper)
 
 
 def smooth_part(
@@ -297,27 +94,19 @@ def smooth_part(
     n_dev: int,
 ):
     """Partitioned-level smoothing on the fast representations (constant /
-    cornered).  Per half-sweep: post the halo ppermute, run the zero-halo
-    Pallas bulk, correct the two boundary planes, then (cornered) overwrite
-    region rows exactly — identical math to the single-device smoothers up
-    to summation order."""
+    cornered).  Per half-sweep: exchange the halo planes, sweep the local
+    block on the level's exact taps — identical math to the single-device
+    smoothers up to summation order."""
     if iterations <= 0:
         return x
-    cornered = isinstance(op, CorneredOperator)
-    values = op.values
-    offsets = op.offsets
-    tbl = region_table(op) if cornered else None
+    local = _local_op(op, x.shape, axis_name, n_dev)
+    di = diag_index(op.offsets)
 
     if name == "chebyshev":
-        di = diag_index(offsets)
-        inv_d = 1.0 / values[di]
-        lam = jnp.asarray(gershgorin_lambda_max(op, inv_d), dtype=x.dtype)
-        if cornered:
-            invd = _cornered_inv_diag_part(
-                op, tbl, x.shape, x.dtype, axis_name, n_dev
-            )
-        else:
-            invd = inv_d
+        lam = jnp.asarray(
+            gershgorin_lambda_max(op, 1.0 / op.values[di]), dtype=x.dtype
+        )
+        invd = 1.0 / local.coeff(di)
         r = residual_part(op, b, x, axis_name, n_dev)
         d = (4.0 / 3.0) / lam * invd * r
         for k in range(1, iterations + 1):
@@ -340,311 +129,5 @@ def smooth_part(
     for _ in range(iterations):
         for mode, color in sweeps:
             lower, upper = halo_planes(x, axis_name, n_dev)
-            xk = _bulk_half_sweep(
-                mode, values, offsets, b, x, omega, color, lower, upper
-            )
-            if cornered:
-                xk = _cornered_fix_dist(
-                    op, tbl, b, x, xk, mode, omega, color, lower, upper,
-                    axis_name, n_dev,
-                )
-            x = xk
+            x = _half_sweep(mode, local, b, x, omega, color, lower, upper)
     return x
-
-
-# ---------------------------------------------------------------------------
-# varying-coefficient partitioned levels (the diffusion family on the
-# kernel tier, distributed — VERDICT r3 task 2)
-# ---------------------------------------------------------------------------
-
-
-def _use_kernel_vary(offsets, x) -> bool:
-    from openmg_tpu.ops import kernels
-
-    return x.dtype == jnp.float32 and kernels.supports_varying(
-        offsets, x.shape
-    )
-
-
-def _bulk_half_sweep_vary(
-    mode, op, inv_diag, b, x, omega, color, lower, upper
-):
-    """One varying-coefficient half-sweep (or residual) on the local
-    block, halo-exact: ONE vary Pallas pass with the halo planes consumed
-    in-kernel (3D blocks; 2D blocks keep the kernel + epilogue, like the
-    const path), else the jnp overlapped path.  ``inv_diag`` is the
-    per-element local 1/diag (the 3D kernel derives it from the diagonal
-    coefficient slab)."""
-    offsets = op.offsets
-    if not _use_kernel_vary(offsets, x):
-        if mode == "jacobi":
-            om = jnp.asarray(omega, dtype=x.dtype)
-            ax = apply_overlapped(op, x, lower, upper)
-            return x + om * inv_diag * (b - ax)
-        if mode == "rb":
-            off_sum = apply_overlapped(op, x, lower, upper, exclude_diag=True)
-            xn = inv_diag * (b - off_sum)
-            red = parity_mask_expr(x.shape)
-            m = red if color == 0 else ~red
-            return jnp.where(m, xn, x)
-        return b - apply_overlapped(op, x, lower, upper)
-
-    from openmg_tpu.ops import kernels
-
-    coeffs = op.coeffs
-    if x.ndim == 3:
-        return kernels.halo_half_sweep_vary_3d(
-            coeffs, offsets, b, x, _KMODE[mode], omega, color, lower, upper
-        )
-
-    if mode == "jacobi":
-        xk = kernels.jacobi_vary_3d(coeffs, offsets, b, x, 1, omega)
-    elif mode == "rb":
-        xk = kernels.rbgs_half_sweep_vary_3d(coeffs, offsets, b, x, color)
-    else:
-        xk = kernels.residual_vary_3d(coeffs, offsets, b, x)
-    corr_lo, corr_hi = _halo_corrections(
-        lambda k, which: coeffs[k, :1] if which == "lo" else coeffs[k, -1:],
-        offsets, lower, upper, x.dtype,
-    )
-    if mode == "residual":
-        return _epilogue_fix(mode, xk, corr_lo, corr_hi, 0.0, 0.0, 0.0, 0)
-    local = x.shape[0]
-    inv_lo = lax.slice_in_dim(inv_diag, 0, 1, axis=0)
-    inv_hi = lax.slice_in_dim(inv_diag, local - 1, local, axis=0)
-    return _epilogue_fix(
-        mode, xk, corr_lo, corr_hi, inv_lo, inv_hi, omega, color
-    )
-
-
-def residual_part_vary(op, b, x, axis_name, n_dev: int):
-    """Halo-exact ``r = b − A x`` on the local block of a partitioned
-    varying-coefficient level (vary Pallas bulk + epilogues)."""
-    lower, upper = halo_planes(x, axis_name, n_dev)
-    return _bulk_half_sweep_vary(
-        "residual", op, None, b, x, 0.0, 0, lower, upper
-    )
-
-
-def smooth_part_vary(
-    name: str,
-    op,
-    inv_diag,
-    b,
-    x,
-    iterations: int,
-    omega: float,
-    axis_name,
-    n_dev: int,
-):
-    """Partitioned varying-coefficient smoothing on the kernel tier
-    (jacobi / rbgs / chebyshev).  Per half-sweep: post the halo ppermute,
-    run the zero-halo vary Pallas bulk, correct the two boundary planes
-    with the local coefficient slabs.  Chebyshev pmaxes its Gershgorin
-    λ_max once (one global polynomial) and then runs on the vary residual
-    kernels — VERDICT r4 task 10."""
-    if iterations <= 0:
-        return x
-    if name == "chebyshev":
-        lam = gershgorin_lambda_max(op, inv_diag)
-        if not op.is_constant:
-            lam = lax.pmax(lam, axis_name)
-        lam = jnp.asarray(lam, dtype=x.dtype)
-        r = residual_part_vary(op, b, x, axis_name, n_dev)
-        d = (4.0 / 3.0) / lam * inv_diag * r
-        for k in range(1, iterations + 1):
-            x = x + d
-            if k == iterations:
-                break
-            r = residual_part_vary(op, r, d, axis_name, n_dev)  # r ← r − A d
-            d = ((2 * k - 1) / (2 * k + 3)) * d + (
-                (8 * k + 4) / (2 * k + 3)
-            ) / lam * inv_diag * r
-        return x
-    if name == "jacobi":
-        sweeps = (("jacobi", 0),)
-    elif name == "rbgs":
-        sweeps = (("rb", 0), ("rb", 1))
-    else:
-        raise ValueError(f"unknown smoother {name!r}")
-    for _ in range(iterations):
-        for mode, color in sweeps:
-            lower, upper = halo_planes(x, axis_name, n_dev)
-            x = _bulk_half_sweep_vary(
-                mode, op, inv_diag, b, x, omega, color, lower, upper
-            )
-    return x
-
-
-# (The former ``df_residual_edge_planes`` jnp edge repair is gone: the
-# fused kernel now takes the (x_hi, x_lo, e) halo planes directly and
-# derives the updated halo x' in-kernel —
-# kernels.df_update_residual_const_3d(halos=...).)
-
-
-# ---------------------------------------------------------------------------
-# deep-fusion tier on partitioned levels (ops/fused.py with device halos)
-# ---------------------------------------------------------------------------
-
-
-def _fusable_op(op, b) -> bool:
-    """Ops the deep-fusion tier handles: constant stencils and cornered
-    operators (whose axis-0 region fix-ups are gated to the first device
-    in-kernel via the open_lo flag — ops/fused.py)."""
-    if b.ndim != 3 or b.dtype != jnp.float32:
-        return False
-    if isinstance(op, CorneredOperator):
-        return True
-    return isinstance(op, StencilOperator) and op.is_constant
-
-
-def smooth_chunks_part(
-    name, op, b, x, iterations, omega, axis_name, n_dev: int
-):
-    """Partitioned multi-half-sweep fusion WITHOUT transfer fusion: S
-    half-sweeps run in chunks of the deepest VMEM-fitting depth, each
-    chunk one Pallas pass with chunk-deep halo slabs in-kernel.  This is
-    the fallback fused tier for levels where the full
-    presmooth+restrict / prolong+postsmooth fusion does not fit (e.g.
-    512²-plane levels) — it halves the half-sweep HBM passes vs the
-    per-sweep tier, mirroring the single-device ``smooth_fused``
-    chunking.  Returns the smoothed ``x`` or None."""
-    from openmg_tpu.ops import fused
-
-    if not _fusable_op(op, b):
-        return None
-    stages = fused.stages_for(name, iterations, omega)
-    if stages is None or len(stages) < 2:
-        return None
-    corner = fused._corner_info(op)
-    k = len(op.offsets)
-    c_max = 0
-    for c in range(min(len(stages), fused.MAX_CHUNK), 1, -1):
-        if fused._fit_tz(
-            b.shape, c, True, 1,
-            min_tz=max(2, c + 1 if corner else c), k=k,
-        ) is not None:
-            c_max = c
-            break
-    if c_max < 2:
-        return None
-    if corner and len(stages) % c_max:
-        # a trailing single half-sweep would need the per-sweep cornered
-        # path mid-loop; let smooth_part handle the whole thing instead
-        return None
-    flags = open_flags(axis_name, n_dev)
-    # b never changes between chunks — exchange its slabs ONCE at the
-    # full width and slice for a shorter trailing chunk (lower slab =
-    # neighbor's LAST rows, upper = its FIRST rows); only x re-exchanges
-    b_lo_full, b_hi_full = halo_slabs(b, axis_name, n_dev, c_max)
-    remaining = list(stages)
-    while remaining:
-        c = min(c_max, len(remaining))
-        if c < 2:
-            # a trailing single half-sweep: the per-sweep halo kernel
-            mode, p = remaining[0]
-            lower, upper = halo_planes(x, axis_name, n_dev)
-            x = _bulk_half_sweep(
-                "jacobi" if mode == "jacobi" else "rb",
-                op.values, op.offsets, b, x,
-                p if mode == "jacobi" else 0.0,
-                p if mode != "jacobi" else 0,
-                lower, upper,
-            )
-            remaining = remaining[1:]
-            continue
-        chunk, remaining = remaining[:c], remaining[c:]
-        b_pair = (
-            (b_lo_full, b_hi_full)
-            if c == c_max
-            else (b_lo_full[c_max - c:], b_hi_full[:c])
-        )
-        x_pair = halo_slabs(x, axis_name, n_dev, c)
-        x = fused.fused_stages_const_3d(
-            op.values, op.offsets, b, x, chunk, corner=corner,
-            halos=(flags, b_pair, x_pair, None),
-        )
-    return x
-
-
-def presmooth_restrict_part(
-    name, op, b, x, iterations, omega, transfer, axis_name, n_dev: int
-):
-    """Partitioned deep fusion: zero/x-start pre-smoothing + residual +
-    restriction in ONE Pallas pass per local block, with depth-deep halo
-    slabs of ``b`` (and ``x``) consumed in-kernel (ops/fused.py
-    ``halos=``).  Returns ``(x, bc_local)`` or None.  Both this level and
-    the next must be row-partitioned (the emitted ``bc`` is the local
-    coarse block — axis-0 coarsening keeps device alignment because
-    local extents are even)."""
-    from openmg_tpu.ops import fused
-
-    if not _fusable_op(op, b):
-        return None
-    depth = fused.plan_presmooth_restrict(
-        name, len(op.offsets), b.shape, iterations, omega, transfer,
-        has_x=x is not None, halo=True,
-        corner=isinstance(op, CorneredOperator),
-    )
-    if depth is None:
-        return None
-    flags = open_flags(axis_name, n_dev)
-    b_pair = halo_slabs(b, axis_name, n_dev, depth)
-    x_pair = halo_slabs(x, axis_name, n_dev, depth) if x is not None else None
-    return fused.presmooth_restrict_fused(
-        name, op, b, x, iterations, omega, transfer,
-        halos=(flags, b_pair, x_pair, None),
-    )
-
-
-def prolong_smooth_part(
-    name, op, b, x, ec, iterations, omega, transfer, axis_name, n_dev: int
-):
-    """Partitioned deep fusion: coarse-correction prolongation + add +
-    post-smoothing in ONE Pallas pass per local block (halo slabs of b,
-    x, and the coarse ec in-kernel).  Returns the smoothed ``x`` or
-    None."""
-    from openmg_tpu.ops import fused
-
-    if not _fusable_op(op, b):
-        return None
-    depth = fused.plan_prolong_smooth(
-        name, len(op.offsets), b.shape, iterations, omega, transfer,
-        halo=True, corner=isinstance(op, CorneredOperator),
-    )
-    if depth is None:
-        return None
-    flags = open_flags(axis_name, n_dev)
-    b_pair = halo_slabs(b, axis_name, n_dev, depth)
-    x_pair = halo_slabs(x, axis_name, n_dev, depth)
-    dc = depth // 2
-    ec_pair = halo_slabs(ec, axis_name, n_dev, dc, dc + 1)
-    return fused.prolong_smooth_fused(
-        name, op, b, x, ec, iterations, omega, transfer,
-        halos=(flags, b_pair, x_pair, ec_pair),
-    )
-
-
-def residual_restrict_part(op, b, x, transfer, axis_name, n_dev: int):
-    """Partitioned partial fusion (VERDICT r4 task 1): the level residual
-    + its restriction in ONE stage-free Pallas pass per local block
-    (depth-2 halo slabs of b and x in-kernel, never materializing the
-    fine residual).  The tier for 512²-plane local blocks where the
-    staged presmooth+restrict fusion misses VMEM.  Returns the local
-    coarse ``bc`` or None."""
-    from openmg_tpu.ops import fused
-
-    if not _fusable_op(op, b):
-        return None
-    depth = fused.plan_residual_restrict(
-        len(op.offsets), b.shape, transfer, halo=True,
-        corner=isinstance(op, CorneredOperator),
-    )
-    if depth is None:
-        return None
-    flags = open_flags(axis_name, n_dev)
-    b_pair = halo_slabs(b, axis_name, n_dev, depth)
-    x_pair = halo_slabs(x, axis_name, n_dev, depth)
-    return fused.residual_restrict_fused(
-        op, b, x, transfer, halos=(flags, b_pair, x_pair, None)
-    )

@@ -3,29 +3,24 @@
 Each device owns a contiguous block of grid axis 0.  Stencils and the
 ``linear`` transfer taps reach at most one plane across the block boundary,
 so the halo is a single plane each way, exchanged with ``lax.ppermute``
-ring shifts (ICI-neighbor traffic on a pod slice).  The grid boundary is
+ring shifts (neighbor traffic; on one host the cards are joined all to
+all).  The grid boundary is
 Dirichlet-truncated, matching the single-device stencil convention: edge
 devices receive a zero halo (the ppermute ring wraps, so the wrapped plane
 is masked off).
 
 All functions here run *inside* ``shard_map`` on local blocks.
 
-Overlap vs amortization (the BASELINE T10 "halo exchange overlapped with
-interior smoothing" clause): :func:`halo_planes` + :func:`apply_overlapped`
-structure the **jnp path's** sweeps so the bulk local-only SpMV has no
-data dependency on the ppermute results — only the two boundary-plane
-correction terms consume them — leaving XLA free to run the
-collective-permute concurrently with interior compute.
-``apply_overlapped`` is algebraically identical to ``apply_ext`` after
-``halo_exchange`` (the halo terms are summed last instead of in offset
-order; fp differences are at roundoff).  The compiled fast tier
-(:mod:`openmg_tpu.parallel.fast`) does NOT take this path: its Pallas
-kernels consume halo planes/slabs in-kernel (each pass depends on its
-exchange) because that design measured 3.5× faster than the
-overlap-capable kernel+epilogue split, and the deep-fusion tier
-*amortizes* one slab exchange across a whole multi-stage pass instead.
-The pod story is the comm model's no-overlap efficiency bound
-(parallel/model.py) — see README "Halo story".
+Overlap (the BASELINE T10 "halo exchange overlapped with interior
+smoothing" clause): :func:`halo_planes` + :func:`apply_overlapped`
+structure the sweeps so the bulk local-only SpMV has no data dependency
+on the ppermute results — only the two boundary-plane correction terms
+consume them — leaving XLA free to run the collective-permute
+concurrently with interior compute.  ``apply_overlapped`` is
+algebraically identical to ``apply_ext`` after ``halo_exchange`` (the
+halo terms are summed last instead of in offset order; fp differences are
+at roundoff).  Whether the overlap happens on the cards is not measured
+yet (README "Halo story").
 """
 
 from __future__ import annotations
@@ -37,7 +32,6 @@ __all__ = [
     "halo_exchange",
     "halo_planes",
     "halo_slabs",
-    "open_flags",
     "shifted_ext",
     "apply_ext",
     "apply_overlapped",
@@ -86,10 +80,8 @@ def halo_slabs(x_local, axis_name: str, n_dev: int, lo_width: int,
                hi_width: int | None = None):
     """Multi-plane halo exchange: ``(lower, upper)`` slabs of
     ``lo_width`` / ``hi_width`` planes (zeros at the global domain
-    edges).  The deep-fusion tier's S-stage kernels consume S-deep halos
-    in-kernel (ops/fused.py ``halos=``); the per-sweep kernels use the
-    width-1 :func:`halo_planes`.  Requires ``local ≥ width`` (the fused
-    plan's ``tz ≥ depth`` constraint guarantees it)."""
+    edges); the banded sparse levels exchange ``max|d|``-row slabs.
+    Requires ``local ≥ width``."""
     if hi_width is None:
         hi_width = lo_width
     if n_dev == 1:
@@ -108,19 +100,6 @@ def halo_slabs(x_local, axis_name: str, n_dev: int, lo_width: int,
     return lower, upper
 
 
-def open_flags(axis_name: str, n_dev: int):
-    """(1, 2) f32 ``[open_lo, open_hi]``: does this device's block have a
-    live neighbor below/above?  Consumed in SMEM by the halo'd fused
-    kernels to widen the valid-z range at open edges while keeping the
-    Dirichlet zero truncation at true domain edges."""
-    if n_dev == 1:
-        return jnp.zeros((1, 2), jnp.float32)
-    idx = lax.axis_index(axis_name)
-    lo = (idx > 0).astype(jnp.float32)
-    hi = (idx < n_dev - 1).astype(jnp.float32)
-    return jnp.stack([lo, hi]).reshape(1, 2)
-
-
 def _plane_shift(plane, off):
     """Apply the trailing-axis part of ``off`` to a (1, *trailing) plane."""
     rest = (0,) + tuple(off[1:])
@@ -132,10 +111,11 @@ def _plane_shift(plane, off):
 
 
 def _coeff_row(op, k, row: int):
-    """Coefficient slab of offset k at local row ``row`` (scalar for
-    constant operators, a (1, *trailing) slice otherwise)."""
+    """Coefficient slab of offset k at local row ``row``: the coefficient
+    itself when it does not vary along axis 0 (a scalar, or a tap of size
+    1 there), else its (1, *trailing) slice."""
     c = op.coeff(k)
-    if op.is_constant:
+    if jnp.ndim(c) == 0 or c.shape[0] == 1:
         return c
     return lax.slice_in_dim(c, row, row + 1, axis=0)
 

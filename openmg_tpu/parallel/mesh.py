@@ -1,23 +1,21 @@
 """Device mesh construction and multi-host bootstrap (component T16).
 
 The reference has no distribution layer at all (SURVEY.md §2A: no MPI/NCCL).
-The TPU-native communication substrate is JAX/XLA collectives over ICI/DCN:
-``jax.sharding.Mesh`` built from ``mesh_utils.create_device_mesh`` (ICI-
-topology-aware), ``jax.distributed.initialize`` for multi-host process
-bootstrap, and ``shard_map``-scoped ``lax.ppermute`` / ``all_gather`` /
-``psum`` used by the halo-exchange and coarse-redistribution layers
-(SURVEY.md §5.8).
+Here the communication substrate is JAX/XLA collectives (NCCL on GPUs):
+a ``jax.sharding.Mesh`` over the devices in ``jax.devices()`` order,
+``jax.distributed.initialize`` for multi-process bootstrap, and
+``shard_map``-scoped ``lax.ppermute`` / ``all_gather`` / ``psum`` used by
+the halo-exchange and coarse-redistribution layers (SURVEY.md §5.8).
 
 The solver partitions along a single named axis (grid axis 0 ↔ mesh axis
-``"x"``): halo traffic is neighbor-only, so on a pod slice XLA routes it
-over ICI neighbor links; low-frequency coarse all-gathers tolerate DCN.
+``"x"``): halo traffic is neighbor-only.  The cards of one host are joined
+all to all by NVLink, so the device order needs no topology mapping.
 """
 
 from __future__ import annotations
 
 import jax
 import numpy as np
-from jax.experimental import mesh_utils
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 __all__ = [
@@ -30,52 +28,42 @@ __all__ = [
 
 
 def make_mesh(n_devices=None, axis_name: str = "x", devices=None) -> Mesh:
-    """1D solver mesh over ``n_devices`` (default: all local devices).
-
-    Uses ``mesh_utils.create_device_mesh`` when taking every device so the
-    ring order follows the physical ICI topology; explicit device subsets
-    are laid out in the order given.
+    """1D solver mesh over the first ``n_devices`` of ``jax.devices()``
+    (default: all); explicit ``devices`` are laid out in the order given.
     """
     if devices is None:
         all_devices = jax.devices()
         n = n_devices or len(all_devices)
         if n > len(all_devices):
             raise ValueError(f"requested {n} devices, have {len(all_devices)}")
-        if n == len(all_devices):
-            devices = mesh_utils.create_device_mesh((n,))
-        else:
-            devices = np.array(all_devices[:n])
+        devices = np.array(all_devices[:n])
     return Mesh(np.asarray(devices).reshape(-1), (axis_name,))
 
 
 def make_mesh_2d(shape, axis_names=("host", "chip"), devices=None) -> Mesh:
-    """2-level ``(n_hosts, chips_per_host)`` mesh — the DCN×ICI layout of
-    SURVEY.md §4.2-3/§5.8.  The solver partitions grid axis 0 across BOTH
-    axes (collectives take the axis-name tuple; ``lax.axis_index`` over the
-    tuple is the linearized host-major device index, verified on the fake
-    8-device mesh), so ring-neighbor halo ppermutes stay on ICI except at
-    the host boundary, which is exactly the contiguous-row-block layout's
-    DCN crossing."""
+    """2-level ``(n_hosts, devices_per_host)`` mesh (SURVEY.md
+    §4.2-3/§5.8).  The solver partitions grid axis 0 across BOTH axes
+    (collectives take the axis-name tuple; ``lax.axis_index`` over the
+    tuple is the linearized host-major device index, verified on the
+    virtual 8-device mesh), so ring-neighbor halo ppermutes cross hosts
+    only at the host boundary of the contiguous-row-block layout."""
     shape = tuple(int(s) for s in shape)
     n = int(np.prod(shape))
     if devices is None:
         all_devices = jax.devices()
         if n > len(all_devices):
             raise ValueError(f"requested {n} devices, have {len(all_devices)}")
-        if n == len(all_devices):
-            devices = mesh_utils.create_device_mesh(shape)
-        else:
-            devices = np.array(all_devices[:n]).reshape(shape)
+        devices = np.array(all_devices[:n]).reshape(shape)
     return Mesh(np.asarray(devices).reshape(shape), tuple(axis_names))
 
 
 def initialize_distributed(**kwargs) -> None:
     """Multi-host bootstrap: one process per host, same program everywhere.
 
-    Thin wrapper over ``jax.distributed.initialize`` (coordinator address /
-    process id / num processes resolve from the TPU environment
-    automatically on Cloud TPU).  Call before any device use; no-op if
-    already initialized.
+    Thin wrapper over ``jax.distributed.initialize``; pass
+    ``coordinator_address``, ``num_processes`` and ``process_id`` where no
+    cluster environment provides them.  Call before any device use; no-op
+    if already initialized.
     """
     try:
         jax.distributed.initialize(**kwargs)
@@ -96,7 +84,7 @@ def initialize_distributed(**kwargs) -> None:
         if "must be called before" in msg:
             # the XLA backend is already up in this process (e.g. tests,
             # or a late call after device use) — bootstrap is impossible
-            # now; warn so a pod user notices instead of silently running
+            # now; warn so a multi-host user notices instead of running
             # a 1-process mesh
             import warnings
 
@@ -110,7 +98,7 @@ def initialize_distributed(**kwargs) -> None:
         raise
     except ValueError:
         # single-process environment with no coordinator (e.g. local CPU
-        # or a lone chip): nothing to bootstrap — a true no-op
+        # or a lone card): nothing to bootstrap — a true no-op
         pass
 
 

@@ -9,7 +9,7 @@ restriction (each coarse point averages its 2^d fine children with weight
 direct solve at the coarsest level, and an outer cycle loop that runs until
 ``‖b − A x‖₂ < threshold`` (SURVEY.md §3.1, components R2–R8).
 
-The TPU solver is validated against this mirror for both the fixed point
+The JAX solver is validated against this mirror for both the fixed point
 (matches a direct solve) and the per-cycle residual trajectory (when using
 the same smoother).
 """

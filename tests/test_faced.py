@@ -7,8 +7,8 @@ so apply/residual/smoother sweeps must agree with the varying path to fp
 round-off, and full solves must reproduce the varying-path trajectory.
 The cornered form additionally collapses the corrections to (K,) vectors
 per face/edge/corner region (tap depends only on {axes b: i_b=0, o_b=0} —
-see ops/stencil.py::CorneredOperator), which the deep-fusion Pallas
-smoothers exploit via in-kernel fix-ups (tests in test_fused.py).
+see ops/stencil.py::CorneredOperator), which lets the smoothers generate
+every row's exact taps from iota inside one fused sweep.
 """
 
 import numpy as np

@@ -40,8 +40,8 @@ def test_partition_plan():
     # once replicated, stays replicated
     plan2 = partition_plan([(8, 8), (64, 64), (32, 32)], 8)
     assert plan2 == (False, False, False)
-    # force: 1-device mesh still marks levels partitioned (pod-program
-    # compile-check mode; the coarsest stays replicated)
+    # force: 1-device mesh still marks levels partitioned (per-device
+    # partitioned-program check; the coarsest stays replicated)
     assert partition_plan(shapes, 1, force=True) == (
         True, True, True, True, False
     )
@@ -149,16 +149,13 @@ def test_overlapped_solve_matches_reference_path():
         ((64, 32), "linear", "rbgs"),
         ((32, 16, 16), "linear", "rbgs"),
         ((16, 16), "linear", "jacobi"),
-        # local nx ≥ 128: Pallas kernel + boundary-epilogue path on the
-        # partitioned constant fine level AND the partitioned cornered
-        # Galerkin level, plus the fused df update+residual outer loop
-        # (interpreter-mode Pallas inside shard_map on 8 CPU devices)
+        # wide local planes on the partitioned constant fine level AND
+        # the partitioned cornered Galerkin level
         ((32, 8, 256), "linear", "rbgs"),
         ((32, 8, 256), "aggregate", "jacobi"),
         # chebyshev: residual-based fast path on partitioned cornered levels
         ((32, 16, 16), "linear", "chebyshev"),
-        # partitioned 2D with local nx >= 128: lifted Pallas kernels +
-        # boundary epilogues on 2D local blocks
+        # partitioned 2D local blocks
         ((32, 256), "linear", "rbgs"),
     ],
 )
@@ -198,14 +195,9 @@ def test_distributed_matches_single_device(shape, transfer, smoother):
 
 
 def test_distributed_deep_fusion_matches_single():
-    """(64, 16, 128): the partitioned deep-fusion tier (presmooth +
-    residual + restriction in one Pallas pass and prolong + postsmooth in
-    one pass, device halo slabs in-kernel — ops/fused.py ``halos=``)
-    engages on the local (8, 16, 128) blocks and must reproduce the
-    single-device solve."""
-    from openmg_tpu.ops import fused
-    from openmg_tpu.parallel import fast
-
+    """(64, 16, 128): partitioned const and cornered levels above a
+    partitioned coarser level (halo-tap restriction and prolongation on
+    local (8, 16, 128) blocks) reproduce the single-device solve."""
     shape = (64, 16, 128)
     cfg = SolverConfig(
         smoother="rbgs",
@@ -219,40 +211,9 @@ def test_distributed_deep_fusion_matches_single():
     b = rhs_random(shape, seed=15)
     single = setup(shape, cfg)
     x1, info1 = single.solve(b)
-    # the deep-fusion plans must trigger at the local block shape
-    local = (shape[0] // 8,) + shape[1:]
-    t = single.hierarchy.transfer
-    assert fused.plan_presmooth_restrict("rbgs", 7, local, 2, 2 / 3, t,
-                                         halo=True) is not None
-    assert fused.plan_prolong_smooth("rbgs", 7, local, 2, 2 / 3, t,
-                                     halo=True) is not None
-    calls = {"pre": 0, "post": 0}
-    orig_pre = fast.presmooth_restrict_part
-    orig_post = fast.prolong_smooth_part
-
-    def count_pre(*a, **k):
-        out = orig_pre(*a, **k)
-        if out is not None:
-            calls["pre"] += 1
-        return out
-
-    def count_post(*a, **k):
-        out = orig_post(*a, **k)
-        if out is not None:
-            calls["post"] += 1
-        return out
-
-    fast.presmooth_restrict_part = count_pre
-    fast.prolong_smooth_part = count_post
-    try:
-        dist = DistributedSolver(
-            single.hierarchy, cfg, MeshConfig(n_devices=8)
-        )
-        x8, info8 = dist.solve(b)
-    finally:
-        fast.presmooth_restrict_part = orig_pre
-        fast.prolong_smooth_part = orig_post
-    assert calls["pre"] > 0 and calls["post"] > 0, calls
+    dist = DistributedSolver(single.hierarchy, cfg, MeshConfig(n_devices=8))
+    assert dist.plan[:2] == (True, True)
+    x8, info8 = dist.solve(b)
     assert info8["converged"] == info1["converged"]
     assert abs(info8["cycles"] - info1["cycles"]) <= 1
     np.testing.assert_allclose(
@@ -261,16 +222,12 @@ def test_distributed_deep_fusion_matches_single():
 
 
 def test_distributed_cornered_deep_fusion_matches():
-    """The K=27 cornered Galerkin level runs the deep-fusion tier
-    partitioned: presmooth+residual+restriction and prolong+postsmooth
-    each as one Pallas pass with halo slabs, the axis-0 region fix-ups
-    gated to the first device in-kernel (open_lo).  Kernel-level parity
-    against the single-device fused entries (a full-solve variant at
-    this scale is minutes of CPU interpreter time)."""
-    import dataclasses as _dc
-
-    from openmg_tpu.ops import fused
-    from openmg_tpu.ops.stencil import CorneredOperator
+    """The K=27 cornered Galerkin level smooths and takes residuals
+    partitioned over 8 devices — halo planes at the block edges, axis-0
+    region fix-ups gated to the first device — identically to the
+    single-device smoother and residual on the whole grid."""
+    from openmg_tpu.ops.smoothers import smooth
+    from openmg_tpu.ops.stencil import CorneredOperator, residual
     from openmg_tpu.parallel import fast
     from openmg_tpu.parallel.mesh import make_mesh
 
@@ -278,71 +235,53 @@ def test_distributed_cornered_deep_fusion_matches():
         smoother="rbgs", transfer="linear", residual_dtype="doublefloat",
         cycles=60, gridlevels=4, max_dense_coarse=4096,
     )
-    h = setup((128, 32, 256), cfg).hierarchy
+    h = setup((128, 32, 64), cfg).hierarchy
     op = h.levels[1].A
     assert isinstance(op, CorneredOperator) and op.num_offsets == 27
-    s = op.grid_shape  # (64, 16, 128)
+    s = op.grid_shape  # (64, 16, 32)
     local = (s[0] // 8,) + s[1:]
-    assert fused.plan_presmooth_restrict(
-        "rbgs", 27, local, 2, 2 / 3, h.transfer, halo=True, corner=True
-    ) is not None
     op_local = CorneredOperator(
         op.values, op.deltas, op.offsets, local, op.subsets
     )
     b = jnp.asarray(rhs_random(s, seed=3), jnp.float32)
     x = jnp.asarray(rhs_random(s, seed=4), jnp.float32)
-    sc = tuple(d // 2 for d in s)
-    ec = jnp.asarray(rhs_random(sc, seed=5), jnp.float32)
     mesh = make_mesh(8)
-
-    xw, bcw = fused.presmooth_restrict_fused(
-        "rbgs", op, b, None, 2, 2 / 3, h.transfer
-    )
-    f = jax.jit(
+    for name in ("rbgs", "jacobi", "chebyshev"):
+        want = smooth(name, op, h.levels[1].inv_diag, b, x, 2, 2 / 3)
+        f = jax.jit(
+            jax.shard_map(
+                lambda b_, x_: fast.smooth_part(
+                    name, op_local, b_, x_, 2, 2 / 3, "x", 8
+                ),
+                mesh=mesh, in_specs=(P("x"), P("x")), out_specs=P("x"),
+                check_vma=False,
+            )
+        )
+        np.testing.assert_allclose(
+            np.asarray(f(b, x)), np.asarray(want), atol=2e-5, err_msg=name
+        )
+    fr = jax.jit(
         jax.shard_map(
-            lambda b_: fast.presmooth_restrict_part(
-                "rbgs", op_local, b_, None, 2, 2 / 3, h.transfer, "x", 8
-            ),
-            mesh=mesh, in_specs=P("x"), out_specs=(P("x"), P("x")),
+            lambda b_, x_: fast.residual_part(op_local, b_, x_, "x", 8),
+            mesh=mesh, in_specs=(P("x"), P("x")), out_specs=P("x"),
             check_vma=False,
         )
     )
-    xg, bcg = f(b)
-    np.testing.assert_allclose(np.asarray(xg), np.asarray(xw), atol=2e-5)
-    np.testing.assert_allclose(np.asarray(bcg), np.asarray(bcw), atol=2e-5)
-
-    yw = fused.prolong_smooth_fused(
-        "rbgs", op, b, x, ec, 2, 2 / 3, h.transfer
+    np.testing.assert_allclose(
+        np.asarray(fr(b, x)), np.asarray(residual(op, b, x)), atol=2e-5
     )
-    assert yw is not None
-    fp = jax.jit(
-        jax.shard_map(
-            lambda b_, x_, e_: fast.prolong_smooth_part(
-                "rbgs", op_local, b_, x_, e_, 2, 2 / 3, h.transfer, "x", 8
-            ),
-            mesh=mesh, in_specs=(P("x"),) * 3, out_specs=P("x"),
-            check_vma=False,
-        )
-    )
-    yg = fp(b, x, ec)
-    np.testing.assert_allclose(np.asarray(yg), np.asarray(yw), atol=2e-5)
 
 
 def test_distributed_vary_kernel_tier():
-    """(32, 8, 256) diffusion: partitioned varying-coefficient levels run
-    the vary Pallas kernels inside shard_map (the local block (4, 8, 256)
-    passes the same supports_varying gate the fast tier checks), matching
-    the single-device solve (VERDICT r3 task 2)."""
+    """(32, 8, 256) diffusion: partitioned varying-coefficient levels
+    (coefficient grids sharded with the rows) match the single-device
+    solve (VERDICT r3 task 2)."""
     from openmg_tpu.models.poisson import diffusion_stencil
-    from openmg_tpu.ops import kernels
 
     shape = (32, 8, 256)
     rng = np.random.default_rng(5)
     kappa = np.exp(0.5 * rng.standard_normal(shape))
     offsets, coeffs = diffusion_stencil(kappa)
-    local = (shape[0] // 8,) + shape[1:]
-    # the gate fast.smooth_part_vary applies to the per-device block
-    assert kernels.supports_varying(offsets, local)
     cfg = SolverConfig(
         smoother="rbgs",
         transfer="linear",
@@ -366,17 +305,15 @@ def test_distributed_vary_kernel_tier():
 
 
 def test_distributed_vary_chebyshev_kernel_tier():
-    """Chebyshev on partitioned varying levels runs the vary kernel tier
-    (λ_max pmax'd once inside smooth_part_vary), matching single-device
-    (VERDICT r4 task 10 — the last smoother×kind×partitioned cell)."""
+    """Chebyshev on partitioned varying levels (λ_max pmax'd once across
+    the devices), matching single-device (VERDICT r4 task 10 — the last
+    smoother×kind×partitioned cell)."""
     from openmg_tpu.models.poisson import diffusion_stencil
-    from openmg_tpu.ops import kernels
 
     shape = (32, 8, 256)
     rng = np.random.default_rng(7)
     kappa = np.exp(0.5 * rng.standard_normal(shape))
     offsets, coeffs = diffusion_stencil(kappa)
-    assert kernels.supports_varying(offsets, (shape[0] // 8,) + shape[1:])
     cfg = SolverConfig(
         smoother="chebyshev",
         transfer="linear",
@@ -402,11 +339,8 @@ def test_distributed_vary_chebyshev_kernel_tier():
 @pytest.mark.parametrize("shape", [(32, 16, 16), (32, 8, 256)])
 def test_force_partition_single_device_matches(shape):
     """MeshConfig(force_partition=True) on a 1-device mesh runs the exact
-    per-device pod program (zero-halo Pallas bulk + boundary epilogues +
-    cornered fix-ups + fused df edge repair — parallel/fast.py) and must
-    reproduce the single-device solve.  This is the program
-    scripts/bench_dist_chip.py compiles on the real chip; here it runs in
-    interpreter mode for correctness."""
+    per-device multi-device program (halo-aware sweeps + cornered fix-ups
+    — parallel/fast.py) and must reproduce the single-device solve."""
     cfg = SolverConfig(
         smoother="rbgs",
         transfer="linear",
@@ -638,36 +572,6 @@ def test_initialize_distributed_reraises_genuine_errors(monkeypatch):
         initialize_distributed()  # benign: swallowed
 
 
-def test_comm_model_accounting():
-    """The static halo/HBM accounting (parallel/model.py): partitioned
-    levels report positive halo bytes, efficiency bounds are in (0, 1],
-    and more devices never decreases the modeled per-cycle halo traffic
-    of the same local-size problem family."""
-    from openmg_tpu.parallel.model import comm_model
-
-    cfg = SolverConfig(
-        smoother="rbgs", transfer="linear", residual_dtype="doublefloat",
-        cycles=60, gridlevels=3, max_dense_coarse=4096,
-    )
-    solver = distributed_setup((64, 16, 128), cfg, MeshConfig(n_devices=8))
-    m = comm_model(solver)
-    assert m["halo_bytes_per_cycle"] > 0
-    assert m["hbm_bytes_per_cycle"] > 0
-    assert 0 < m["efficiency_bound_no_overlap"] <= 1
-    assert 0 < m["efficiency_bound_overlap"] <= 1
-    assert (
-        m["efficiency_bound_overlap"] >= m["efficiency_bound_no_overlap"]
-    )
-    lv0 = m["per_level"][0]
-    assert lv0["partitioned"] and lv0["halo_bytes"] > 0
-    # the deep-fused fine level must be recognized by the model (it
-    # changes the exchange pattern from per-half-sweep planes to
-    # depth-deep slabs)
-    assert lv0["deep_fused"] is True
-    # coarsest level: replicated, no halo traffic
-    assert m["per_level"][-1]["halo_bytes"] == 0.0
-
-
 def test_weak_scaling_harness_schema():
     """Pin the weak-scaling harness (BASELINE north-star metric surface):
     record schema, efficiency formula (per-device throughput relative to
@@ -842,15 +746,11 @@ def test_distributed_solve_many_device_native(monkeypatch):
     )
 
 
-def test_distributed_partial_fusion_matches_single(monkeypatch):
-    """Partial tier on partitioned levels (VERDICT r4 task 1): with the
-    full staged fusions disabled (the 512²-plane situation), the
-    distributed cycle composes chunked smoothing + the stage-free
-    residual_restrict_part + prolong+1-sweep, still matching the
-    single-device solve."""
-    from openmg_tpu.ops import fused
-    from openmg_tpu.parallel import fast
-
+@pytest.mark.parametrize("overlap", [True, False])
+def test_distributed_partial_fusion_matches_single(overlap):
+    """(32, 16, 32): RB-GS on partitioned const/cornered levels with the
+    overlapped halo scheme on and off reproduces the single-device
+    solve."""
     shape = (32, 16, 32)
     cfg = SolverConfig(smoother="rbgs", transfer="linear",
                        residual_dtype="doublefloat", cycles=60,
@@ -859,82 +759,12 @@ def test_distributed_partial_fusion_matches_single(monkeypatch):
     b = rhs_random(shape, seed=11)
     single = setup(shape, cfg)
     x1, info1 = single.solve(b)
-
-    monkeypatch.setattr(fast, "presmooth_restrict_part",
-                        lambda *a, **k: None)
-    orig_psp = fast.prolong_smooth_part
-
-    def psp_one_only(name, op, b_, x_, ec, iters, omega, transfer, ax, nd):
-        if iters > 1:
-            return None
-        return orig_psp(name, op, b_, x_, ec, iters, omega, transfer,
-                        ax, nd)
-
-    monkeypatch.setattr(fast, "prolong_smooth_part", psp_one_only)
-    calls = {"rr": 0}
-    orig_rr = fast.residual_restrict_part
-
-    def counting_rr(*a, **k):
-        out = orig_rr(*a, **k)
-        if out is not None:
-            calls["rr"] += 1
-        return out
-
-    monkeypatch.setattr(fast, "residual_restrict_part", counting_rr)
-    dist = DistributedSolver(single.hierarchy, cfg, MeshConfig(n_devices=8))
+    dist = DistributedSolver(
+        single.hierarchy, cfg, MeshConfig(n_devices=8, overlap_halo=overlap)
+    )
     x8, info8 = dist.solve(b)
-    assert calls["rr"] > 0, "the stage-free partial tier must engage"
     assert info8["converged"] == info1["converged"]
     assert abs(info8["cycles"] - info1["cycles"]) <= 1
     np.testing.assert_allclose(
         np.asarray(x8), np.asarray(x1), rtol=1e-8, atol=1e-10
-    )
-
-
-def test_comm_model_calibration():
-    """Pin comm_model's HBM accounting to the on-chip measurements
-    (VERDICT r4 task 5): re-run the model at the artifact's configs and
-    assert (a) the model reproduces the recorded model bytes — any tier
-    change without recalibration fails here — and (b) the recorded
-    model-vs-XLA-cost-analysis agreement held within 30%."""
-    import json
-    from pathlib import Path
-
-    path = Path(__file__).parent.parent / "MODELCAL_r05.json"
-    if not path.exists():
-        pytest.skip("MODELCAL_r05.json not generated yet")
-    from openmg_tpu.parallel.model import comm_model
-
-    data = json.loads(path.read_text())
-    for rec in data["records"]:
-        shape = tuple(rec["shape"])
-        if shape != (256, 256, 256):
-            continue  # 512³ CPU setup is too heavy for CI; 256³ pins it
-        cfg = SolverConfig(smoother="rbgs", transfer="linear",
-                           residual_dtype="doublefloat", cycles=60)
-        solver = setup(shape, cfg)
-        sd = DistributedSolver(
-            solver.hierarchy, cfg,
-            MeshConfig(n_devices=1, force_partition=True),
-        )
-        model = comm_model(sd)
-        np.testing.assert_allclose(
-            model["hbm_bytes_per_cycle"],
-            rec["model_hbm_bytes_per_cycle_total"],
-            rtol=1e-6,
-            err_msg="comm_model drifted from the calibrated artifact — "
-            "re-run scripts/calibrate_model.py on the chip",
-        )
-    # chip validation band (512³, where bytes dominate the launch
-    # floors): model = 0.55–0.95 × measured-time×stream-BW.  The model
-    # deliberately omits fused-window re-reads and redundant halo
-    # recompute, so it UNDER-counts compute — the efficiency bounds it
-    # produces are conservative (lower) bounds.  XLA cost analysis is
-    # recorded but NOT asserted: Pallas custom calls are invisible to it
-    # (it reported 5.3e7 B for a 256³ cycle — less than one array).
-    rec512 = next(
-        r for r in data["records"] if tuple(r["shape"]) == (512, 512, 512)
-    )
-    assert 0.55 <= rec512["model_over_timebw"] <= 0.95, (
-        rec512["model_over_timebw"]
     )

@@ -78,8 +78,8 @@ def test_plan_banded_levels_partition():
     plan = sparse_partition_plan(h, 8)
     assert plan == (True, True, True, False)  # coarsest always replicated
     assert sparse_partition_plan(h, 1) == (False,) * 4
-    # force=True keeps levels partitioned on a 1-device mesh (the pod
-    # per-device program compile-check mode)
+    # force=True keeps levels partitioned on a 1-device mesh (the
+    # per-device partitioned-program check)
     assert sparse_partition_plan(h, 1, force=True) == (
         True, True, True, False,
     )
@@ -191,9 +191,9 @@ def test_two_axis_mesh_matches_1d_mesh():
 
 
 def test_force_partition_single_device():
-    """force_partition=True on a 1-device mesh compiles the exact pod
-    per-device program (halo slabs degenerate to zeros) — the on-chip
-    validation mode, pinned here for parity."""
+    """force_partition=True on a 1-device mesh compiles the exact
+    per-device partitioned program (halo slabs degenerate to zeros) —
+    pinned here for parity."""
     A, shape = pentadiag(2048), (2048,)
     cfg = _cfg()
     b = rhs_random(shape, seed=2).reshape(-1)
@@ -286,28 +286,24 @@ def test_algebraic_solve_many_program_cached():
     assert solver._solve_many_prog is prog
 
 
-def test_comm_model_sparse_accounting():
-    """Static halo/HBM accounting for the distributed sparse engine
-    (parallel/model.py::comm_model_sparse): partitioned levels report
-    positive halo bytes, halo traffic scales with the band halo, and the
-    efficiency bounds are in (0, 1]."""
-    from openmg_tpu.parallel.model import comm_model_sparse
+def test_band_halo_sizes_partitioned_levels():
+    """Each partitioned banded level exchanges ``H`` = its widest offset
+    rows per side; a level whose local block would hold fewer than ``H``
+    rows stays replicated, as does the coarsest."""
+    from openmg_tpu.parallel.sparse_dist import _band_halo
 
-    solver = setup_sparse_distributed(pentadiag(4096), (4096,), _cfg())
-    m = comm_model_sparse(solver)
-    assert m["halo_bytes_per_cycle"] > 0
-    assert m["hbm_bytes_per_cycle"] > 0
-    assert 0 < m["efficiency_bound_no_overlap"] <= 1
-    assert 0 < m["efficiency_bound_overlap"] <= 1
-    assert m["efficiency_bound_overlap"] >= m["efficiency_bound_no_overlap"]
-    lv0 = m["per_level"][0]
-    assert lv0["partitioned"] and lv0["halo_bytes"] > 0
-    assert m["per_level"][-1]["halo_bytes"] == 0.0  # replicated coarsest
-
-    # wide-band 3D Poisson: halo traffic per Ax is 2·H rows, so the 3D
-    # fine level (H = 16²) must dwarf the pentadiagonal one (H = 2)
-    s3 = setup_sparse_distributed(poisson((16, 16, 16)), (16, 16, 16), _cfg())
-    m3 = comm_model_sparse(s3)
-    assert (
-        m3["per_level"][0]["halo_bytes"] > lv0["halo_bytes"]
-    )
+    h = build_sparse_hierarchy(pentadiag(4096), (4096,), fmt="ell")
+    assert [_band_halo(l.A.slot_offsets) for l in h.levels[:1]] == [2]
+    shape = (16, 16, 16)
+    h3 = build_sparse_hierarchy(poisson(shape), shape, fmt="ell")
+    H = _band_halo(h3.levels[0].A.slot_offsets)
+    assert H == 16 * 16
+    plan = sparse_partition_plan(h3, 8)
+    assert plan[0] is True and plan[-1] is False
+    for l, part in zip(h3.levels[:-1], plan[:-1]):
+        if l.A.slot_offsets is not None and part:
+            assert l.n // 8 >= _band_halo(l.A.slot_offsets)
+    # 16 devices would leave 256-row blocks at the fine level: still
+    # one ring hop; 32 would leave 128 < H rows, so it cannot partition
+    assert sparse_partition_plan(h3, 16)[0] is True
+    assert sparse_partition_plan(h3, 32)[0] is False

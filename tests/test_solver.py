@@ -91,8 +91,8 @@ def test_mixed_precision_refinement_reaches_1e10():
 
 
 def test_doublefloat_refinement_reaches_1e10():
-    """TPU-native path: f32 cycle + two-f32 compensated residual reaches
-    1e-10 with no float64 on device (works identically on CPU)."""
+    """Accelerator default: f32 cycle + two-f32 compensated residual
+    reaches 1e-10 with no float64 on device (identical on every backend)."""
     shape = (32, 32)
     b = rhs_random(shape, seed=6)
     cfg = SolverConfig(
